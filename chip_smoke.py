@@ -5,8 +5,8 @@
 
 Phases, each fatal on failure (no phase catches an error):
 
-1. builds the CUDA sweep kernel and the STL packer from the repository's
-   sources;
+1. builds the CUDA sweep kernel, the CUDA ray kernels (LMIP, MIDA) and the
+   STL packer from the repository's sources, all compilers at once;
 2. holds the sweep kernel against its plain PyTorch version, bit for bit,
    for axes 0, 1, 2 with int16 and int32 labels at 64^3 and (11, 21, 130);
 3. runs the segmentation-to-STL flow at 128^3 through the kernel and
@@ -15,7 +15,18 @@ Phases, each fatal on failure (no phase catches an error):
    once to warm up and once timed, with the kernel's launch counts reset
    just before the timed run; checks the STL size, a closed oriented mesh
    and finite vertices;
-5. times the kernel against the plain version at 512^3 per axis.
+5. times the kernel against the plain version at 512^3 per axis;
+6. holds the ray kernels against their plain PyTorch versions: LMIP bit for
+   bit, MIDA within 1 after the cast (int16, float32 and uint8 slabs, every
+   axis, inverted and narrowed slabs, degenerate windows, a constant slab);
+7. drives the slice viewer's frame path at 512^3 (``Slice.get_rendered_slice``
+   on ``make_ct(512)``, window 400/40, the bone mask shown): every projection
+   type but Normal, in every orientation, at slabs 64 and 512, once through
+   the kernels (launch counts reset just before, read just after) and once
+   through the plain versions; the frames must agree; then the median warm
+   frame time per type and orientation;
+8. times the ray kernels against their plain versions at 512^3, full depth,
+   per axis (axis 2 both as a strided view and through a contiguous copy).
 
 It prints the card's name and power limit first, a JSON line of the
 kernels before the last line, and as the last line
@@ -36,7 +47,11 @@ import numpy as np
 import torch
 
 from invesalius3_tpu_torch import _build, pipeline
+from invesalius3_tpu_torch import constants as const
+from invesalius3_tpu_torch.core.slice import Slice
+from invesalius3_tpu_torch.core.volume import Volume
 from invesalius3_tpu_torch.ops import kernels
+from invesalius3_tpu_torch.ops import projection_kernels as rays
 
 KERNEL_SOURCE = "invesalius3_tpu_torch/csrc/watershed_sweep.cu"
 REPLACES = {  # sweep axis -> the TPU kernel it replaces
@@ -44,6 +59,15 @@ REPLACES = {  # sweep axis -> the TPU kernel it replaces
     1: "invesalius3_tpu/ops/pallas_kernels.py:289",  # watershed_sweep_y
     2: "invesalius3_tpu/ops/pallas_kernels.py:289",  # y kernel on swapped axes
 }
+RAY_SOURCE = "invesalius3_tpu_torch/csrc/ray_projections.cu"
+RAY_REPLACES = {"lmip": "invesalius3_tpu/ops/pallas_kernels.py:81",   # lmip_axis0
+                "mida": "invesalius3_tpu/ops/pallas_kernels.py:147"}  # mida_axis0
+RAY_FNS = {"lmip": (rays.lmip_rays, rays.lmip_ref),
+           "mida": (rays.mida_rays, rays.mida_ref)}
+ORIENTATIONS = [const.AXIAL, const.CORONAL, const.SAGITTAL]
+# the MIDA types: kernel and plain frames agree within 1 (the rest exactly)
+MIDA_TYPES = {const.PROJECTION_MIDA, const.PROJECTION_CONTOUR_MIDA}
+FRAME_N = 512  # the frame path's CT: make_ct(512), 256 MiB of int16
 # the JAX package's 512^3 counts (BENCH_r05.json); its vertex count holds
 # one padding orphan the port does not have
 REF_TRIS, REF_VERTS = 6_168_140, 3_084_021 - 1
@@ -152,11 +176,24 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
         launches, times = run_flows(dev, Path(d))
 
-    log(json.dumps({"kernels": [
+    errs = {(k, a): 0.0 for k in RAY_FNS for a in (0, 1, 2)}
+    log("[6] ray kernels vs plain versions")
+    check_ray_kernels(dev, errs)
+    ray_launches, volume = frame_path(dev, errs)
+    log("[8] ray kernels vs plain at full depth (int16, the frame's window)")
+    ray_times = time_rays(volume, errs)
+
+    entries = [
         {"name": f"watershed_sweep[axis={axis}]", "route": "cuda",
          "source": KERNEL_SOURCE, "replaces": REPLACES[axis],
          "launches": launches[axis], **times[axis]}
-        for axis in (0, 1, 2)]}))
+        for axis in (0, 1, 2)]
+    entries += [
+        {"name": f"{k}_axis0[axis={axis}]", "route": "cuda", "source": RAY_SOURCE,
+         "replaces": RAY_REPLACES[k], "launches": ray_launches[k][axis],
+         "max_abs_err": errs[(k, axis)], **ray_times[(k, axis)]}
+        for k in RAY_FNS for axis in (0, 1, 2)]
+    log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -221,6 +258,162 @@ def run_flows(dev, tmp: Path):
 
     log("[5] sweep kernel vs plain at 512^3 (int32 labels)")
     return launches, time_sweeps(dev, 512)
+
+
+def _err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got - want|, NaN against NaN counting as equal."""
+    d = (got.double() - want.double()).abs()
+    d = torch.where(torch.isnan(got) & torch.isnan(want), 0.0, d)
+    return float(d.max())
+
+
+def check_ray_kernels(dev, errs) -> None:
+    """Phase 6: LMIP bit-exact, MIDA within 1 after the cast."""
+    f32_diff = 0.0
+    for label, vol, axis, narrow, inverted in rays.ray_cases():
+        slab = rays.case_slab(torch.from_numpy(vol).to(dev), axis, narrow, inverted)
+        for k, params in (("lmip", rays.LMIP_PARAMS), ("mida", rays.MIDA_PARAMS)):
+            kernel, plain = RAY_FNS[k]
+            for a, b in params:
+                got, want = kernel(slab, axis, a, b), plain(slab, axis, a, b)
+                torch.cuda.synchronize()
+                err = _err(got, want)
+                errs[(k, axis)] = max(errs[(k, axis)], err)
+                if slab.dtype == torch.float32 and k == "mida":
+                    f32_diff = max(f32_diff, err)
+                if (k == "lmip" and not torch.equal(got, want)) or err > 1:
+                    raise AssertionError(f"{k} kernel differs from its plain version: "
+                                         f"{label}, params {(a, b)}, max err {err}")
+        log(f"  {label}: lmip bit-exact, mida max err "
+            f"{errs[('mida', axis)]:g} so far")
+    log(f"  largest MIDA difference on float32 slabs: {f32_diff!r}")
+
+
+def _slabs(n: int):
+    """(first slice, slab) pairs of phase 7: a slab of n/8 from the middle
+    and the whole volume from slice 0."""
+    return ((n * 7 // 16, n // 8), (0, n))
+
+
+def _frames(n: int):
+    """(projection, orientation, first slice, slab) of phase 7."""
+    types = [p for p in sorted(const.PROJECTION_NAMES) if p != const.PROJECTION_NORMAL]
+    return [(p, o, start, slabs) for p in types for o in ORIENTATIONS
+            for start, slabs in _slabs(n)]
+
+
+def frame_path(dev, errs, n: int = FRAME_N):
+    """Phase 7; returns (ray-kernel launch counts of the main path's run,
+    the n^3 volume on the card)."""
+    log(f"[7] slice viewer frame path at {n}^3")
+    t0 = time.perf_counter()
+    vol = Volume.from_numpy(pipeline.make_ct(n), spacing=pipeline.SPACING,
+                            device=dev)
+    slc = Slice(vol)
+    slc.set_window(400.0, 40.0)
+    slc.create_new_mask(threshold_range=const.THRESHOLD_PRESETS_CT["Bone"])
+    torch.cuda.synchronize()
+    log(f"  set-up (make_ct, h2d, bone mask): {time.perf_counter() - t0:.2f} s")
+    frames = _frames(n)
+    for p, o, start, slabs in frames:           # warm-up
+        slc.get_rendered_slice(o, start, projection=p, slabs=slabs)
+    torch.cuda.reset_peak_memory_stats()
+    rays.reset_launches()
+    t0 = time.perf_counter()
+    rgb_k = [slc.get_rendered_slice(o, start, projection=p, slabs=slabs)
+             for p, o, start, slabs in frames]
+    total = time.perf_counter() - t0
+    launches = {k: dict(v) for k, v in rays.LAUNCHES.items()}
+    log(f"  main path: {len(frames)} frames in {total:.3f} s; ray kernel "
+        f"launches {launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if min(n for per_axis in launches.values() for n in per_axis.values()) <= 0:
+        raise AssertionError(f"a ray kernel axis never launched: {launches}")
+
+    t0 = time.perf_counter()
+    n_diff = 0
+    for (p, o, start, slabs), rgb in zip(frames, rgb_k):
+        axis = const.ORIENTATION_AXIS[o]
+        img_k = slc.project(o, start, slabs, projection=p)
+        img_p = slc.project(o, start, slabs, projection=p, plain=True)
+        rgb_p = slc.render_image(img_p, o, start, slc.window_width,
+                                 slc.window_level)
+        if rgb.shape != (n, n, 3) or rgb.dtype != np.uint8:
+            raise AssertionError(f"frame {p} {o}: {rgb.shape} {rgb.dtype}")
+        err = _err(img_k, img_p)
+        if p in MIDA_TYPES:
+            errs[("mida", axis)] = max(errs[("mida", axis)], err)
+        elif p in (const.PROJECTION_LMIP, const.PROJECTION_CONTOUR_LMIP):
+            errs[("lmip", axis)] = max(errs[("lmip", axis)], err)
+        exact = p not in MIDA_TYPES
+        if (exact and (err != 0 or not np.array_equal(rgb, rgb_p))) or err > 1:
+            raise AssertionError(f"frame {const.PROJECTION_NAMES[p]} {o} slab "
+                                 f"{slabs}: kernel and plain differ (max {err})")
+        n_diff += int(not np.array_equal(rgb, rgb_p))
+    log(f"  {len(frames)} frames checked against the plain versions "
+        f"({time.perf_counter() - t0:.1f} s): exact types equal, RGB frames "
+        f"differing {n_diff}")
+
+    log("  warm frame ms, median of 5 (host clock, RGB on the host): "
+        f"type, orientation: slab {n // 8} / slab {n}")
+    for p in sorted({f[0] for f in frames}):
+        for o in ORIENTATIONS:
+            ms = []
+            for start, slabs in _slabs(n):
+                t = []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    slc.get_rendered_slice(o, start, projection=p, slabs=slabs)
+                    t.append((time.perf_counter() - t0) * 1e3)
+                ms.append(float(np.median(t)))
+            log(f"    {const.PROJECTION_NAMES[p]:>13s} {o:>8s}: "
+                f"{ms[0]:8.3f} / {ms[1]:8.3f}")
+    return launches, slc.matrix
+
+
+def _event_ms(fn, reps: int):
+    """Milliseconds per call by CUDA events: one warm-up, then the best of
+    ``reps``; returns (best, the output)."""
+    out = fn()
+    best = float("inf")
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end))
+    return best, out
+
+
+def time_rays(volume, errs):
+    """Phase 8: the wrappers (aminmax and the output cast included) against
+    the plain versions on the frame path's volume, full depth, per axis,
+    with the frame path's parameters (wl = 40 for both LMIP bounds; MIDA
+    (40, 40)).  Axis 2 is timed as the strided view the wrapper walks and,
+    for comparison, through a contiguous (X, Z, Y) copy walked along axis
+    0, the copy included."""
+    params = (40.0, 40.0)
+    out = {}
+    for k, (kernel, plain) in RAY_FNS.items():
+        for axis in (0, 1, 2):
+            p_ms, want = _event_ms(lambda: plain(volume, axis, *params), 2)
+            ms, got = _event_ms(lambda: kernel(volume, axis, *params), 5)
+            err = _err(got, want)
+            detail = f"{ms:.4f} ms"
+            if axis == 2:
+                copy_ms, got_c = _event_ms(
+                    lambda: kernel(volume.movedim(2, 0).contiguous(), 0, *params), 5)
+                err = max(err, _err(got_c, want))
+                detail = f"view {ms:.4f} ms, copy {copy_ms:.4f} ms"
+            errs[(k, axis)] = max(errs[(k, axis)], err)
+            if (k == "lmip" and err != 0) or err > 1:
+                raise AssertionError(f"{k} axis {axis} at full size differs (max {err})")
+            out[(k, axis)] = {"ms": ms, "plain_ms": p_ms}
+            log(f"  {k} axis {axis}: kernel {detail}; plain {p_ms:.3f} ms; "
+                f"max err {err:g}")
+    return out
 
 
 if __name__ == "__main__":

@@ -1,9 +1,13 @@
 """Build the port's native libraries from the repository's sources.
 
-Two shared libraries, each with a plain C interface loaded through ctypes:
+Three shared libraries, each with a plain C interface loaded through ctypes:
 
 - ``watershed_sweep``: ``csrc/watershed_sweep.cu``, compiled by ``nvcc`` for
   ``sm_90a`` (Hopper).  Only a CUDA tensor ever asks for it.
+- ``ray_projections``: ``csrc/ray_projections.cu`` (LMIP and MIDA), the same
+  way, with ``-fmad=false`` so that no product and sum is contracted into a
+  fused multiply-add: the kernels then round as PyTorch's separate
+  elementwise kernels do.
 - ``meshpack``: the JAX package's host STL packer
   ``invesalius3_tpu/native/meshpack.cpp``, compiled by ``g++`` by path (the
   JAX package's own loader imports jax).
@@ -11,6 +15,7 @@ Two shared libraries, each with a plain C interface loaded through ctypes:
 Nothing is built on import.  Each library is built at first use into
 ``_build/`` next to this file, named by a hash of its sources and flags, so
 a changed source rebuilds and an unchanged one loads the cached file.
+``build_all`` starts every compiler at once.
 """
 
 from __future__ import annotations
@@ -22,23 +27,19 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, List
+from typing import Callable, Dict, List, NamedTuple, Tuple
 
 _HERE = Path(__file__).resolve().parent
 BUILD_DIR = _HERE / "_build"
-CUDA_SOURCES = (_HERE / "csrc" / "watershed_sweep.cu",)
 MESHPACK_SOURCE = _HERE.parent / "invesalius3_tpu" / "native" / "meshpack.cpp"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 GXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread"]
 
-_lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
-# per library: seconds the compiler took in this process (0.0 = cached) and
-# its stderr (ptxas register / shared-memory report for the CUDA build)
-BUILD_LOG: Dict[str, dict] = {}
+P, I, I64, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 
 
 def _nvcc() -> str:
@@ -49,11 +50,46 @@ def _nvcc() -> str:
         if root and (Path(root) / "bin" / "nvcc").exists():
             return str(Path(root) / "bin" / "nvcc")
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       "the watershed sweep kernel")
+                       "the port's CUDA kernels")
 
 
-def _compile(name: str, compiler: str, flags: List[str],
-             sources) -> Path:
+def _gxx() -> str:
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: it builds the STL packer")
+    return gxx
+
+
+class _Lib(NamedTuple):
+    compiler: Callable[[], str]
+    flags: List[str]
+    sources: Tuple[Path, ...]
+    # C function name -> argtypes (every function returns int)
+    functions: Dict[str, list]
+
+
+LIBS: Dict[str, _Lib] = {
+    "watershed_sweep": _Lib(
+        _nvcc, NVCC_FLAGS, (_HERE / "csrc" / "watershed_sweep.cu",),
+        {"ws_sweep": [P, P, P, I, I, I, I, I, P]}),
+    "ray_projections": _Lib(
+        _nvcc, NVCC_FLAGS + ["-fmad=false"],
+        (_HERE / "csrc" / "ray_projections.cu",),
+        {"lmip_rays": [P, P, I, I64, I64, I64, I64, I64, I64, F, F, P],
+         "mida_rays": [P, P, I, I64, I64, I64, I64, I64, I64, P, F, F, P]}),
+    "meshpack": _Lib(
+        _gxx, GXX_FLAGS, (MESHPACK_SOURCE,),
+        {"stl_pack_mt": [P, I64, P, I64, P, I]}),
+}
+
+_locks = {name: threading.Lock() for name in LIBS}
+_libs: Dict[str, ctypes.CDLL] = {}
+# per library: seconds the compiler took in this process (0.0 = cached) and
+# its stderr (ptxas register / shared-memory report for the CUDA builds)
+BUILD_LOG: Dict[str, dict] = {}
+
+
+def _compile(name: str, compiler: str, flags: List[str], sources) -> Path:
     h = hashlib.sha256(" ".join([Path(compiler).name, *flags]).encode())
     for src in sources:
         h.update(Path(src).read_bytes())
@@ -62,7 +98,7 @@ def _compile(name: str, compiler: str, flags: List[str],
         BUILD_LOG[name] = {"seconds": 0.0, "log": "cached"}
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [compiler, *flags, *(str(s) for s in sources), "-o", str(tmp)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
@@ -76,30 +112,16 @@ def _compile(name: str, compiler: str, flags: List[str],
 
 
 def _load(name: str) -> ctypes.CDLL:
-    with _lock:
+    spec = LIBS[name]
+    with _locks[name]:
         lib = _libs.get(name)
         if lib is not None:
             return lib
-        if name == "watershed_sweep":
-            lib = ctypes.CDLL(str(_compile(name, _nvcc(), NVCC_FLAGS,
-                                           CUDA_SOURCES)))
-            lib.ws_sweep.restype = ctypes.c_int
-            lib.ws_sweep.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        elif name == "meshpack":
-            gxx = shutil.which("g++")
-            if gxx is None:
-                raise RuntimeError("g++ not found: it builds the STL packer")
-            lib = ctypes.CDLL(str(_compile(name, gxx, GXX_FLAGS,
-                                           (MESHPACK_SOURCE,))))
-            lib.stl_pack_mt.restype = ctypes.c_int
-            lib.stl_pack_mt.argtypes = [
-                ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                ctypes.c_int64, ctypes.c_void_p, ctypes.c_int]
-        else:
-            raise KeyError(name)
+        lib = ctypes.CDLL(str(_compile(name, spec.compiler(), spec.flags,
+                                       spec.sources)))
+        for fn, argtypes in spec.functions.items():
+            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).argtypes = argtypes
         _libs[name] = lib
         return lib
 
@@ -108,12 +130,18 @@ def watershed_sweep_lib() -> ctypes.CDLL:
     return _load("watershed_sweep")
 
 
+def ray_projections_lib() -> ctypes.CDLL:
+    return _load("ray_projections")
+
+
 def meshpack_lib() -> ctypes.CDLL:
     return _load("meshpack")
 
 
 def build_all() -> Dict[str, dict]:
-    """Build (or load from the cache) every library; returns BUILD_LOG."""
-    watershed_sweep_lib()
-    meshpack_lib()
+    """Build (or load from the cache) every library, all compilers started
+    together; returns BUILD_LOG."""
+    with ThreadPoolExecutor(max_workers=len(LIBS)) as pool:
+        for fut in [pool.submit(_load, name) for name in LIBS]:
+            fut.result()
     return dict(BUILD_LOG)

@@ -1,10 +1,12 @@
 """Numpy bridge: inputs onto a device, outputs back to the host, and the
-JAX package's device mesh carried over into the port's.
+JAX package's state carried over into the port's: its device mesh, and the
+slice viewer's volume, masks and ``Slice``.
 
 The system runs no model; its "weights" are its inputs and the state one
 stage hands the next.  This module moves that state across, so each port
-stage can be fed the JAX stage's exact input.  It never imports jax:
-anything array-like goes through ``np.asarray``.
+stage can be fed the JAX stage's exact input.  It never imports jax: it
+reads JAX objects through their attributes, and anything array-like goes
+through ``np.asarray``.
 """
 
 from __future__ import annotations
@@ -17,8 +19,12 @@ from invesalius3_tpu_torch.ops.marching import DeviceMesh
 
 def to_device(array, device="cpu") -> torch.Tensor:
     """A numpy (or array-like) volume, marker grid or table as a tensor on
-    ``device``, dtype preserved."""
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(array))).to(device)
+    ``device``, dtype preserved.  A read-only array (a view of a JAX
+    buffer) is copied, so the tensor never aliases memory it may not own."""
+    a = np.ascontiguousarray(np.asarray(array))
+    if not a.flags.writeable:
+        a = a.copy()
+    return torch.from_numpy(a).to(device)
 
 
 def to_numpy(tensor: torch.Tensor) -> np.ndarray:
@@ -56,3 +62,81 @@ def from_jax_mesh(jm, device="cpu") -> DeviceMesh:
         spacing=tuple(jm.spacing), vol_shape=tuple(jm.vol_shape),
         origin_shift=tuple(jm.origin_shift))
 
+
+# ---------------------------------------------------------------------------
+# the slice viewer's state: a JAX Volume / Mask / Slice as the port's
+# ---------------------------------------------------------------------------
+
+
+def volume_from_jax(vol, device="cpu"):
+    """The port's ``Volume`` equal to a JAX ``core.volume.Volume``: data via
+    numpy onto ``device``, then spacing, affine, modality and window."""
+    from invesalius3_tpu_torch.core.volume import Volume
+
+    return Volume(data=to_device(vol.data, device), spacing=tuple(vol.spacing),
+                  affine=None if vol.affine is None else np.array(vol.affine),
+                  modality=vol.modality, window_width=vol.window_width,
+                  window_level=vol.window_level)
+
+
+def mask_from_jax(m, device="cpu"):
+    """The port's ``Mask`` equal to a JAX ``core.mask.Mask``.
+
+    Index, name, colour and the other metadata are carried over as they
+    are: the process-wide mask counter (which decides a new mask's index
+    and colour) is not advanced.  The undo/redo history is copied too."""
+    from invesalius3_tpu_torch.core.mask import Mask
+
+    out = Mask.restore(m.index, m.name)
+    out.colour = tuple(m.colour)
+    out.opacity = m.opacity
+    out.threshold_range = tuple(m.threshold_range)
+    out.edition_threshold_range = tuple(m.edition_threshold_range)
+    out.is_shown = m.is_shown
+    out.was_edited = m.was_edited
+    out.derived_from = m.derived_from
+    out.spacing = tuple(m.spacing)
+    out.data = None if m.data is None else to_device(m.data, device)
+    # entries are (orientation, index, before, after), snapshots in numpy
+    copy = lambda entry: (*entry[:2], np.array(entry[2]), np.array(entry[3]))  # noqa: E731
+    out.history.size = m.history.size
+    out.history._undo.extend(copy(e) for e in m.history._undo)
+    out.history._redo.extend(copy(e) for e in m.history._redo)
+    return out
+
+
+def slice_from_jax(slc, device="cpu", bus=None):
+    """The port's ``Slice`` in the state of a JAX ``core.slice.Slice``: the
+    volume, the masks and the current mask, the window, projection type and
+    slab count, the image versions and the colour overlay.  Sends no bus
+    message."""
+    from invesalius3_tpu_torch.core.geometry import Box
+    from invesalius3_tpu_torch.core.slice import Slice
+
+    out = Slice(bus=bus)
+    data = slc.volume.data
+    out.volume = volume_from_jax(slc.volume, device)
+    out.window_width = slc.window_width
+    out.window_level = slc.window_level
+    out.projection_type = slc.projection_type
+    out.n_slabs = slc.n_slabs
+    out.masks = {i: mask_from_jax(m, device) for i, m in slc.masks.items()}
+    cur = slc.current_mask
+    if cur is not None:
+        same = [i for i, m in slc.masks.items() if m is cur]
+        out.current_mask = out.masks[same[0]] if same else mask_from_jax(cur, device)
+    if hasattr(slc, "_image_versions"):
+        # a version that is the volume's own array shares the port's tensor
+        out._image_versions = [
+            (lbl, out.volume.data if mat is data else to_device(mat, device))
+            for lbl, mat in slc._image_versions]
+        out.current_image_label = slc.current_image_label
+    ov = getattr(slc, "_overlay_u8", None)
+    out._overlay_u8 = None if ov is None else np.array(ov)
+    lut = getattr(slc, "_overlay_lut", None)
+    out._overlay_lut = None if lut is None else np.array(lut)
+    box = getattr(slc, "crop_box", None)
+    if box is not None:
+        out.crop_box = Box(box.shape, box.spacing)
+        out.crop_box.set_limits(*box.limits)
+    return out

@@ -1,5 +1,6 @@
-"""Shifts and grey morphology (port of invesalius3_tpu/ops/morphology.py,
-the parts the watershed uses).
+"""Shifts, grey morphology and the crop (port of
+invesalius3_tpu/ops/morphology.py, the parts the watershed and the slice
+use).
 
 Grey dilation and erosion follow ``lax.reduce_window`` with ``padding="SAME"``:
 the border is padded with the dtype's min (dilation) or max (erosion), so a
@@ -78,3 +79,19 @@ def morphological_gradient(x: torch.Tensor,
     """dilation - erosion, the watershed pre-filter (reference
     watershed_process.py:36-52, scipy.ndimage.morphological_gradient)."""
     return grey_dilation(x, size) - grey_erosion(x, size)
+
+
+def crop_mask(mask: torch.Tensor,
+              limits: Tuple[int, int, int, int, int, int]) -> torch.Tensor:
+    """Zero everything outside the (zi, zf, yi, yf, xi, xf) box, limits
+    inclusive: the crop tool (reference styles.py:2596)."""
+    zi, zf, yi, yf, xi, xf = limits
+    Z, Y, X = mask.shape
+    ar = lambda n: torch.arange(n, device=mask.device)  # noqa: E731
+    zz = ar(Z)[:, None, None]
+    yy = ar(Y)[None, :, None]
+    xx = ar(X)[None, None, :]
+    inside = ((zz >= zi) & (zz <= zf) & (yy >= yi) & (yy <= yf)
+              & (xx >= xi) & (xx <= xf))
+    return torch.where(inside, mask, torch.zeros((), dtype=mask.dtype,
+                                                 device=mask.device))

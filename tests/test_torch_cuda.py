@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card, held against its plain version.
+"""The port's CUDA kernels on the card, held against their plain versions.
 
 These tests need an NVIDIA GPU and skip without one.  They import no JAX,
 so they run where the card is:
@@ -10,8 +10,12 @@ import numpy as np
 import pytest
 import torch
 
+from invesalius3_tpu_torch import constants as const
 from invesalius3_tpu_torch import pipeline
+from invesalius3_tpu_torch.core.slice import Slice
+from invesalius3_tpu_torch.core.volume import Volume
 from invesalius3_tpu_torch.ops import kernels, marching, watershed
+from invesalius3_tpu_torch.ops import projection_kernels as rays
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -60,3 +64,65 @@ def test_small_slice_kernel_equals_plain(cuda, levels, tmp_path):
     mask = torch.where(got == 1, 255, 0).to(torch.uint8)
     dm = marching.mask_to_surface_device(mask, spacing=pipeline.SPACING)
     assert dm.n_tris > 0 and bool(torch.isfinite(dm.verts3v).all())
+
+
+RAY_CASES = rays.ray_cases()
+
+
+@pytest.mark.parametrize("case", range(len(RAY_CASES)),
+                         ids=[c[0] for c in RAY_CASES])
+def test_ray_kernels_against_plain(cuda, case):
+    """LMIP bit-exact; MIDA within atol 1 after the cast to an integer dtype
+    (float32 is expected bit-exact too: the library is built without FMA
+    contraction; the bound here is the JAX package's own)."""
+    _, vol, axis, narrow, inverted = RAY_CASES[case]
+    slab = rays.case_slab(torch.from_numpy(vol).to(cuda), axis, narrow, inverted)
+    for tmin, tmax in rays.LMIP_PARAMS:
+        before = rays.LAUNCHES["lmip"][axis]
+        got = rays.lmip_rays(slab, axis, tmin, tmax)
+        torch.cuda.synchronize()
+        assert rays.LAUNCHES["lmip"][axis] == before + 1
+        assert got.dtype == slab.dtype
+        assert torch.equal(got, rays.lmip_ref(slab, axis, tmin, tmax))
+    for wl, ww in rays.MIDA_PARAMS:
+        before = rays.LAUNCHES["mida"][axis]
+        got = rays.mida_rays(slab, axis, wl, ww)
+        torch.cuda.synchronize()
+        assert rays.LAUNCHES["mida"][axis] == before + 1
+        want = rays.mida_ref(slab, axis, wl, ww)
+        assert got.dtype == want.dtype
+        diff = (got.double() - want.double()).abs()
+        both_nan = torch.isnan(got) & torch.isnan(want)
+        assert bool((both_nan | (diff <= 1)).all())
+
+
+@pytest.mark.parametrize("via_copy", [False, True])
+def test_ray_kernels_axis2_both_routes(cuda, via_copy):
+    """Axis 2 walked as the strided view, and as a contiguous (X, Z, Y)
+    copy along axis 0 (the route chip_smoke.py times for comparison)."""
+    slab = torch.from_numpy(rays.ray_case((40, 33, 70), np.int16, 7)).to(cuda)
+    work, axis = (slab.movedim(2, 0).contiguous(), 0) if via_copy else (slab, 2)
+    assert torch.equal(rays.lmip_rays(work, axis, 30.0, 500.0),
+                       rays.lmip_ref(slab, 2, 30.0, 500.0))
+    assert torch.equal(rays.mida_rays(work, axis, 40.0, 400.0),
+                       rays.mida_ref(slab, 2, 40.0, 400.0))
+
+
+@pytest.mark.parametrize("orientation", [const.AXIAL, const.CORONAL, const.SAGITTAL])
+def test_slab_frames_kernel_equals_plain(cuda, orientation):
+    ct = pipeline.make_ct(48)
+    slc = Slice(Volume.from_numpy(ct, device=cuda, window_width=400.0,
+                                  window_level=40.0))
+    slc.create_new_mask(threshold_range=const.THRESHOLD_PRESETS_CT["Bone"])
+    rays.reset_launches()
+    for proj in (const.PROJECTION_LMIP, const.PROJECTION_MIDA,
+                 const.PROJECTION_CONTOUR_LMIP, const.PROJECTION_CONTOUR_MIDA):
+        for start, slabs in ((10, 16), (0, 48)):
+            got = slc.get_rendered_slice(orientation, start, projection=proj,
+                                         slabs=slabs)
+            want = slc.get_rendered_slice(orientation, start, projection=proj,
+                                          slabs=slabs, plain=True)
+            assert got.shape == (48, 48, 3)
+            assert np.array_equal(got, want)
+    axis = const.ORIENTATION_AXIS[orientation]
+    assert rays.LAUNCHES["lmip"][axis] == 4 and rays.LAUNCHES["mida"][axis] == 4

@@ -64,8 +64,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import invesalius3_tpu_torch, invesalius3_tpu_torch._build\n"
         "import invesalius3_tpu_torch.convert, invesalius3_tpu_torch.pipeline\n"
         "from invesalius3_tpu_torch.ops import (kernels, marching, mesh,\n"
-        "    morphology, watershed, windowing)\n"
+        "    morphology, watershed, windowing, casting, threshold,\n"
+        "    projection_kernels, projections)\n"
         "from invesalius3_tpu_torch.io import mesh_io\n"
+        "from invesalius3_tpu_torch import constants, events\n"
+        "from invesalius3_tpu_torch.core import (canvas, geometry, mask,\n"
+        "    slice, volume)\n"
+        "from invesalius3_tpu_torch.utils import helpers\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'invesalius3_tpu' or m.startswith('invesalius3_tpu.')]\n"
         "print(bad)\n"
