@@ -8,14 +8,22 @@ Phases, each fatal on failure (no phase catches an error):
 1. builds the CUDA sweep kernel, the CUDA ray kernels (LMIP, MIDA) and the
    STL packer from the repository's sources, all compilers at once;
 2. holds the sweep kernel against its plain PyTorch version, bit for bit,
-   for axes 0, 1, 2 with int16 and int32 labels at 64^3 and (11, 21, 130);
+   for axes 0, 1, 2 with int16 and int32 labels, on 64^3 and the edge
+   shapes of ``kernels.SWEEP_CHECK_SHAPES`` (an even and an odd x, rays
+   many tiles long, rays of length 1 and 2);
 3. runs the segmentation-to-STL flow at 128^3 through the kernel and
-   through the plain sweep: labels and STL bytes must be identical;
+   through the plain sweep, and the two-level multigrid watershed at 128^3
+   through both: labels, refine rounds and STL bytes must be identical;
 4. runs the flow at 512^3 (bench.py's phantom and markers, spacing 0.5 mm)
    once to warm up and once timed, with the kernel's launch counts reset
-   just before the timed run; checks the STL size, a closed oriented mesh
-   and finite vertices;
-5. times the kernel against the plain version at 512^3 per axis;
+   just before the timed run; checks the STL size and counts, the refine
+   rounds per level, a closed oriented mesh and finite vertices; then once
+   more with every sweep launch between CUDA events and its changed
+   elements counted (``SweepRecorder``): per-axis kernel ms in the flow,
+   launches per level and the sweep's byte bound; and once under
+   ``torch.profiler``: the device's idle share and its largest kernels;
+5. times the kernel against the plain version at 512^3 per axis, int32
+   and int16 labels, with each case's byte bound and the kernel's share;
 6. holds the ray kernels against their plain PyTorch versions: LMIP bit for
    bit, MIDA within 1 after the cast (int16, float32 and uint8 slabs, every
    axis, inverted and narrowed slabs, degenerate windows, a constant slab);
@@ -50,7 +58,7 @@ from invesalius3_tpu_torch import _build, pipeline
 from invesalius3_tpu_torch import constants as const
 from invesalius3_tpu_torch.core.slice import Slice
 from invesalius3_tpu_torch.core.volume import Volume
-from invesalius3_tpu_torch.ops import kernels
+from invesalius3_tpu_torch.ops import kernels, watershed
 from invesalius3_tpu_torch.ops import projection_kernels as rays
 
 KERNEL_SOURCE = "invesalius3_tpu_torch/csrc/watershed_sweep.cu"
@@ -71,14 +79,74 @@ FRAME_N = 512  # the frame path's CT: make_ct(512), 256 MiB of int16
 # the JAX package's 512^3 counts (BENCH_r05.json); its vertex count holds
 # one padding orphan the port does not have
 REF_TRIS, REF_VERTS = 6_168_140, 3_084_021 - 1
+# refine rounds per multigrid level of the 512^3 flow (the JAX package's)
+REF_ROUNDS = [((128, 128, 128), 14), ((256, 256, 256), 10), ((512, 512, 512), 24)]
+HBM_BYTES_PER_S = 3.35e12  # an H100 SXM's device-memory rate (data sheet)
 
 
 def log(*a) -> None:
     print(*a, flush=True)
 
 
+def sweep_bytes(n_elems: int, changed: int, lab_bytes: int) -> int:
+    """Bytes one sweep must move: rank, lab and f read once, rank and lab
+    written where they changed."""
+    return n_elems * (8 + lab_bytes) + changed * (4 + lab_bytes)
+
+
+def sweep_bound_ms(n_elems: int, changed: int, lab_bytes: int) -> float:
+    return sweep_bytes(n_elems, changed, lab_bytes) / HBM_BYTES_PER_S * 1e3
+
+
+class SweepRecorder:
+    """A sweep function that runs ``inner`` between two CUDA events and
+    counts the elements each launch changed (rank and label change
+    together).  ``report`` reads the events once the run is over."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.records = []  # (shape, axis, lab bytes, start, end, changed)
+
+    def __call__(self, rank, lab, f, axis):
+        before = rank.clone()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        self.inner(rank, lab, f, axis)
+        end.record()
+        self.records.append((tuple(rank.shape), axis, lab.element_size(), start,
+                             end, (rank != before).sum()))
+        return rank, lab
+
+    def summary(self):
+        """{axis: (launches, kernel ms, bound ms)}, {level shape: {axis:
+        launches}}."""
+        torch.cuda.synchronize()
+        per_axis = {a: [0, 0.0, 0.0] for a in (0, 1, 2)}
+        levels = {}
+        for shape, axis, lb, start, end, changed in self.records:
+            acc = per_axis[axis]
+            acc[0] += 1
+            acc[1] += start.elapsed_time(end)
+            acc[2] += sweep_bound_ms(int(np.prod(shape)), int(changed), lb)
+            lv = levels.setdefault(shape, {0: 0, 1: 0, 2: 0})
+            lv[axis] += 1
+        return {a: tuple(v) for a, v in per_axis.items()}, levels
+
+    def report(self):
+        per_axis, levels = self.summary()
+        lines = [f"axis {a}: {n} launches, {ms:.3f} ms in the flow, bound "
+                 f"{b:.3f} ms ({b / ms:.1%})" for a, (n, ms, b) in per_axis.items()]
+        ms = sum(v[1] for v in per_axis.values())
+        b = sum(v[2] for v in per_axis.values())
+        lines.append(f"all axes: {ms:.3f} ms, bound {b:.3f} ms ({b / ms:.1%})")
+        lines.append("launches per level (shape: axis 0/1/2): " + "; ".join(
+            f"{s}: {v[0]}/{v[1]}/{v[2]}" for s, v in levels.items()))
+        return lines
+
+
 def check_sweep_kernel(dev) -> None:
-    for shape in [(64, 64, 64), (11, 21, 130)]:
+    for shape in kernels.SWEEP_CHECK_SHAPES:
         for lab_dtype in (np.int16, np.int32):
             for axis in (0, 1, 2):
                 case = kernels.sweep_case(shape, lab_dtype, seed=axis)
@@ -87,12 +155,11 @@ def check_sweep_kernel(dev) -> None:
                 got = kernels.watershed_sweep(
                     *(torch.from_numpy(a.copy()).to(dev) for a in case), axis)
                 torch.cuda.synchronize()
-                same = all(torch.equal(g, w) for g, w in zip(got, want))
-                log(f"  sweep axis {axis} {np.dtype(lab_dtype).name} {shape}: "
-                    f"{'bit-exact' if same else 'MISMATCH'}")
-                if not same:
-                    raise AssertionError(f"sweep kernel differs from the plain "
-                                         f"version: axis {axis} {shape}")
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    raise AssertionError(
+                        f"sweep kernel differs from the plain version: axis "
+                        f"{axis} {np.dtype(lab_dtype).name} {shape}")
+        log(f"  {shape}: bit-exact on every axis, int16 and int32 labels")
 
 
 def check_mesh(dm) -> None:
@@ -114,12 +181,13 @@ def check_mesh(dm) -> None:
         raise AssertionError("mesh is not consistently oriented")
 
 
-def time_sweeps(dev, n: int):
-    """Kernel and plain-version milliseconds per sweep at n^3 with int32
-    labels (the multigrid's dtype), and the largest difference."""
+def time_sweeps(dev, n: int, lab_dtype):
+    """Kernel and plain-version milliseconds per sweep at n^3, the largest
+    difference, and the case's byte bound (``sweep_bytes``)."""
     case = [torch.from_numpy(a).to(dev)
-            for a in kernels.sweep_case((n, n, n), np.int32, seed=5)]
+            for a in kernels.sweep_case((n, n, n), lab_dtype, seed=5)]
     work = [a.clone() for a in case]
+    lab_bytes = np.dtype(lab_dtype).itemsize
     out = {}
     for axis in (0, 1, 2):
         def run(fn):
@@ -140,10 +208,16 @@ def time_sweeps(dev, n: int):
                   int((lab_k.long() - work[1].long()).abs().max()))
         if err != 0:
             raise AssertionError(f"sweep kernel differs at {n}^3, axis {axis}")
+        changed = int((rank_k != case[0]).sum())
+        bound = sweep_bound_ms(n ** 3, changed, lab_bytes)
         # first launch of each includes warm-up; keep the best of the rest
         out[axis] = {"ms": min(ms_k[1:]), "plain_ms": min(ms_p[1:]),
-                     "max_abs_err": err}
-        log(f"  axis {axis}: kernel {ms_k} ms, plain {ms_p} ms")
+                     "max_abs_err": err, "bound_ms": bound, "bound_by": "bytes",
+                     "library_ms": None}
+        log(f"  {np.dtype(lab_dtype).name} axis {axis}: kernel "
+            f"{[round(t, 4) for t in ms_k]} ms, plain {[round(t, 3) for t in ms_p]} "
+            f"ms; bound {bound:.4f} ms ({changed} elements changed), share "
+            f"{bound / min(ms_k[1:]):.1%}")
     return out
 
 
@@ -205,18 +279,34 @@ def run_flows(dev, tmp: Path):
     timings per axis)."""
     log("[3] 128^3 flow: kernel vs plain sweep")
     ct, markers = pipeline.make_ct(128), pipeline.bench_markers(128)
-    res_k = pipeline.run(ct, markers, tmp / "k128.stl", device=dev)
+    rounds_k, rounds_p = [], []
+    res_k = pipeline.run(ct, markers, tmp / "k128.stl", device=dev,
+                         rounds=rounds_k)
     res_p = pipeline.run(ct, markers, tmp / "p128.stl", device=dev,
-                         sweep=kernels.watershed_sweep_ref)
+                         sweep=kernels.watershed_sweep_ref, rounds=rounds_p)
     if not torch.equal(res_k.labels, res_p.labels):
         raise AssertionError("128^3 labels differ between kernel and plain")
+    if rounds_k != rounds_p:
+        raise AssertionError(f"128^3 refine rounds differ: kernel {rounds_k}, "
+                             f"plain {rounds_p}")
     mk, mp = res_k.mesh, res_p.mesh
     if not (torch.equal(mk.faces3t, mp.faces3t)
             and torch.equal(mk.verts3v, mp.verts3v)
             and (tmp / "k128.stl").read_bytes() == (tmp / "p128.stl").read_bytes()):
         raise AssertionError("128^3 meshes differ between kernel and plain")
     check_mesh(res_k.mesh)
-    log(f"  labels bitwise equal, meshes and STL identical: {mk.n_verts} verts, "
+    # the flow's 128^3 watershed is the plain fixpoint (no multigrid below
+    # 192 a side); the two-level multigrid is held here too, rounds and all
+    ct_d, m_d = torch.from_numpy(ct).to(dev), torch.from_numpy(markers).to(dev)
+    mg_k, mg_p = [], []
+    lab_k = watershed.watershed(ct_d, m_d, multigrid_levels=2, rounds=mg_k)
+    lab_p = watershed.watershed(ct_d, m_d, multigrid_levels=2,
+                                sweep=kernels.watershed_sweep_ref, rounds=mg_p)
+    if not torch.equal(lab_k, lab_p) or mg_k != mg_p or not mg_k:
+        raise AssertionError(f"128^3 multigrid differs: rounds {mg_k} vs {mg_p}")
+    log(f"  two-level multigrid: labels bitwise equal, rounds {mg_k} equal")
+    log(f"  flow: labels bitwise equal, rounds {rounds_k} equal, meshes and STL "
+        f"identical: {mk.n_verts} verts, "
         f"{mk.n_tris} tris; kernel {res_k.times['watershed']:.3f} s "
         f"vs plain {res_p.times['watershed']:.3f} s watershed")
     del res_k, res_p, mk, mp
@@ -247,6 +337,11 @@ def run_flows(dev, tmp: Path):
         f"n_tris {n_tris} (JAX package: {REF_TRIS}), STL {size} bytes")
     if size != 84 + 50 * n_tris:
         raise AssertionError(f"STL size {size} != 84 + 50 * {n_tris}")
+    if (n_tris, n_verts) != (REF_TRIS, REF_VERTS):
+        raise AssertionError(f"n_tris {n_tris}, n_verts {n_verts}: the JAX "
+                             f"package gives {REF_TRIS}, {REF_VERTS}")
+    if rounds != REF_ROUNDS:
+        raise AssertionError(f"refine rounds {rounds} != {REF_ROUNDS}")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a sweep axis never launched: {launches}")
     labels = set(torch.unique(res.labels).tolist())
@@ -256,8 +351,45 @@ def run_flows(dev, tmp: Path):
     log("  mesh closed, oriented, finite")
     del res
 
-    log("[5] sweep kernel vs plain at 512^3 (int32 labels)")
-    return launches, time_sweeps(dev, 512)
+    rec = SweepRecorder(kernels.watershed_sweep)
+    rounds = []
+    t0 = time.perf_counter()
+    res = pipeline.run(ct, markers, out, device=dev, sweep=rec, rounds=rounds)
+    log(f"  instrumented run (each sweep between CUDA events, changed elements "
+        f"counted): {time.perf_counter() - t0:.3f} s; rounds {rounds}")
+    if rounds != REF_ROUNDS or res.mesh.n_tris != REF_TRIS:
+        raise AssertionError(f"instrumented run: rounds {rounds}, n_tris "
+                             f"{res.mesh.n_tris}")
+    for line in rec.report():
+        log(f"    {line}")
+    del res, rec
+    profile_flow(dev, ct, markers, out)
+
+    log("[5] sweep kernel vs plain at 512^3")
+    times = time_sweeps(dev, 512, np.int32)
+    time_sweeps(dev, 512, np.int16)
+    return launches, times
+
+
+def profile_flow(dev, ct, markers, out: Path) -> None:
+    """One warm flow under torch.profiler: the device's kernel and copy
+    time, its idle share of the run's wall time, and the largest kernels."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        pipeline.run(ct, markers, out, device=dev)
+        wall = time.perf_counter() - t0
+    # kernels and copies only: an aten op's row repeats its kernels' time
+    rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_time_total > 0 and not e.key.startswith(("aten::", "cuda"))
+            and "Activity Buffer" not in e.key]
+    busy = sum(ms for _, ms, _ in rows) / 1e3
+    log(f"  profiled run: wall {wall:.4f} s, device kernel and copy time "
+        f"{busy:.4f} s, idle share {1 - busy / wall:.1%}")
+    for name, ms, count in sorted(rows, key=lambda r: -r[1])[:12]:
+        log(f"    {ms:9.3f} ms {count:5d}x  {name[:90]}")
 
 
 def _err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -387,6 +519,35 @@ def _event_ms(fn, reps: int):
     return best, out
 
 
+def lmip_reads(volume, axis: int, tmin: float, tmax: float) -> int:
+    """Elements the LMIP kernel must read: every ray up to and including the
+    step that stops it (the first strict decrease once a value in
+    [tmin, tmax] has been seen), the rest of a stopped ray not at all."""
+    lanes = volume.movedim(axis, 0)
+    m = lanes[0].float()
+    start = (m >= tmin) & (m <= tmax)
+    stopped = torch.zeros_like(start)
+    reads = torch.tensor(m.numel(), dtype=torch.int64, device=volume.device)
+    for z in range(1, lanes.shape[0]):
+        reads += (~stopped).sum()
+        v = lanes[z].float()
+        stop = ~stopped & start & (v < m)
+        go = ~stopped & ~stop
+        m = torch.where(go & (v > m), v, m)
+        start = torch.where(go, start | ((v >= tmin) & (v <= tmax)), start)
+        stopped |= stop
+    return int(reads)
+
+
+def ray_bound_ms(k: str, volume, axis: int, params) -> float:
+    """The least time for a ray kernel's call at the device-memory rate:
+    LMIP reads what its rays need (``lmip_reads``); MIDA normalises by the
+    slab's min and max, so it reads every element; both write one plane."""
+    n = lmip_reads(volume, axis, *params) if k == "lmip" else volume.numel()
+    plane = volume.numel() // volume.shape[axis]
+    return (n + plane) * volume.element_size() / HBM_BYTES_PER_S * 1e3
+
+
 def time_rays(volume, errs):
     """Phase 8: the wrappers (aminmax and the output cast included) against
     the plain versions on the frame path's volume, full depth, per axis,
@@ -410,9 +571,11 @@ def time_rays(volume, errs):
             errs[(k, axis)] = max(errs[(k, axis)], err)
             if (k == "lmip" and err != 0) or err > 1:
                 raise AssertionError(f"{k} axis {axis} at full size differs (max {err})")
-            out[(k, axis)] = {"ms": ms, "plain_ms": p_ms}
+            bound = ray_bound_ms(k, volume, axis, params)
+            out[(k, axis)] = {"ms": ms, "plain_ms": p_ms, "bound_ms": bound,
+                              "bound_by": "bytes", "library_ms": None}
             log(f"  {k} axis {axis}: kernel {detail}; plain {p_ms:.3f} ms; "
-                f"max err {err:g}")
+                f"max err {err:g}; bound {bound:.4f} ms, share {bound / ms:.1%}")
     return out
 
 

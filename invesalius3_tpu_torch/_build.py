@@ -8,9 +8,11 @@ Three shared libraries, each with a plain C interface loaded through ctypes:
   way, with ``-fmad=false`` so that no product and sum is contracted into a
   fused multiply-add: the kernels then round as PyTorch's separate
   elementwise kernels do.
-- ``meshpack``: the JAX package's host STL packer
-  ``invesalius3_tpu/native/meshpack.cpp``, compiled by ``g++`` by path (the
-  JAX package's own loader imports jax).
+- ``meshpack``: the host STL packer ``csrc/meshpack.cpp`` (the port's own
+  copy of the JAX package's record packer), compiled by ``g++``.
+
+Every source lies in this package: the port builds nothing from the JAX
+package's tree.
 
 Nothing is built on import.  Each library is built at first use into
 ``_build/`` next to this file, named by a hash of its sources and flags, so
@@ -33,7 +35,6 @@ from typing import Callable, Dict, List, NamedTuple, Tuple
 
 _HERE = Path(__file__).resolve().parent
 BUILD_DIR = _HERE / "_build"
-MESHPACK_SOURCE = _HERE.parent / "invesalius3_tpu" / "native" / "meshpack.cpp"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -78,7 +79,7 @@ LIBS: Dict[str, _Lib] = {
         {"lmip_rays": [P, P, I, I64, I64, I64, I64, I64, I64, F, F, P],
          "mida_rays": [P, P, I, I64, I64, I64, I64, I64, I64, P, F, F, P]}),
     "meshpack": _Lib(
-        _gxx, GXX_FLAGS, (MESHPACK_SOURCE,),
+        _gxx, GXX_FLAGS, (_HERE / "csrc" / "meshpack.cpp",),
         {"stl_pack_mt": [P, I64, P, I64, P, I]}),
 }
 

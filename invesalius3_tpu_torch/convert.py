@@ -6,7 +6,8 @@ The system runs no model; its "weights" are its inputs and the state one
 stage hands the next.  This module moves that state across, so each port
 stage can be fed the JAX stage's exact input.  It never imports jax: it
 reads JAX objects through their attributes, and anything array-like goes
-through ``np.asarray``.
+through ``np.asarray``.  Every bridge puts its tensors on the card unless
+the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -14,13 +15,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from invesalius3_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from invesalius3_tpu_torch.ops.marching import DeviceMesh
 
 
-def to_device(array, device="cpu") -> torch.Tensor:
+def to_device(array, device=DEFAULT_DEVICE) -> torch.Tensor:
     """A numpy (or array-like) volume, marker grid or table as a tensor on
     ``device``, dtype preserved.  A read-only array (a view of a JAX
     buffer) is copied, so the tensor never aliases memory it may not own."""
+    device = resolve_device(device)
     a = np.ascontiguousarray(np.asarray(array))
     if not a.flags.writeable:
         a = a.copy()
@@ -31,7 +34,7 @@ def to_numpy(tensor: torch.Tensor) -> np.ndarray:
     return tensor.detach().cpu().numpy()
 
 
-def from_jax_mesh(jm, device="cpu") -> DeviceMesh:
+def from_jax_mesh(jm, device=DEFAULT_DEVICE) -> DeviceMesh:
     """The port's ``DeviceMesh`` equal to a JAX ``marching.DeviceMesh``.
 
     The JAX mesh is sized to buckets: faces and corners past ``n_tris`` are
@@ -40,6 +43,7 @@ def from_jax_mesh(jm, device="cpu") -> DeviceMesh:
     and shifts every vertex id down by one in that case.  Corner ids
     m = c * T_pad + t become c * n_tris + t.
     """
+    device = resolve_device(device)
     n_tris = int(jm.n_tris)
     n_verts = int(jm.n_verts)
     faces3t = np.asarray(jm.faces3t)
@@ -68,7 +72,7 @@ def from_jax_mesh(jm, device="cpu") -> DeviceMesh:
 # ---------------------------------------------------------------------------
 
 
-def volume_from_jax(vol, device="cpu"):
+def volume_from_jax(vol, device=DEFAULT_DEVICE):
     """The port's ``Volume`` equal to a JAX ``core.volume.Volume``: data via
     numpy onto ``device``, then spacing, affine, modality and window."""
     from invesalius3_tpu_torch.core.volume import Volume
@@ -79,7 +83,7 @@ def volume_from_jax(vol, device="cpu"):
                   window_level=vol.window_level)
 
 
-def mask_from_jax(m, device="cpu"):
+def mask_from_jax(m, device=DEFAULT_DEVICE):
     """The port's ``Mask`` equal to a JAX ``core.mask.Mask``.
 
     Index, name, colour and the other metadata are carried over as they
@@ -87,6 +91,7 @@ def mask_from_jax(m, device="cpu"):
     and colour) is not advanced.  The undo/redo history is copied too."""
     from invesalius3_tpu_torch.core.mask import Mask
 
+    device = resolve_device(device)
     out = Mask.restore(m.index, m.name)
     out.colour = tuple(m.colour)
     out.opacity = m.opacity
@@ -105,7 +110,7 @@ def mask_from_jax(m, device="cpu"):
     return out
 
 
-def slice_from_jax(slc, device="cpu", bus=None):
+def slice_from_jax(slc, device=DEFAULT_DEVICE, bus=None):
     """The port's ``Slice`` in the state of a JAX ``core.slice.Slice``: the
     volume, the masks and the current mask, the window, projection type and
     slab count, the image versions and the colour overlay.  Sends no bus
@@ -113,6 +118,7 @@ def slice_from_jax(slc, device="cpu", bus=None):
     from invesalius3_tpu_torch.core.geometry import Box
     from invesalius3_tpu_torch.core.slice import Slice
 
+    device = resolve_device(device)
     out = Slice(bus=bus)
     data = slc.volume.data
     out.volume = volume_from_jax(slc.volume, device)

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from invesalius3_tpu_torch import constants as const
+from invesalius3_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 
 MASK_COLOURS = [
     (0.33, 1.0, 0.33),
@@ -69,11 +70,14 @@ class Mask:
     general_index = -1
 
     def __init__(self, shape=None, index: Optional[int] = None, name: str = "",
-                 device="cpu"):
+                 device=DEFAULT_DEVICE):
+        """An empty mask; with ``shape``, zeros on ``device`` (the card
+        unless "cpu"; without a shape no tensor is made)."""
+        data = None if shape is None else torch.zeros(
+            tuple(shape), dtype=torch.uint8, device=resolve_device(device))
         Mask.general_index += 1
         self._set_defaults(Mask.general_index if index is None else index, name)
-        if shape is not None:
-            self.data = torch.zeros(tuple(shape), dtype=torch.uint8, device=device)
+        self.data = data
 
     def _set_defaults(self, index: int, name: str) -> None:
         self.index = index
@@ -199,7 +203,10 @@ class Mask:
 
     @classmethod
     def load_plist(cls, plist_bytes: bytes, dat_bytes: bytes,
-                   device="cpu") -> "Mask":
+                   device=DEFAULT_DEVICE) -> "Mask":
+        """A mask read from its plist and bordered .dat bytes, its data on
+        ``device`` (the card unless "cpu")."""
+        device = resolve_device(device)
         info = plistlib.loads(plist_bytes)
         m = cls(index=info["index"], name=info["name"])
         m.colour = tuple(info["colour"])

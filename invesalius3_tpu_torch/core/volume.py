@@ -13,6 +13,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from invesalius3_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class Volume:
@@ -50,7 +52,9 @@ class Volume:
     def from_numpy(cls, array: np.ndarray,
                    spacing: Tuple[float, float, float] = (1.0, 1.0, 1.0),
                    affine: Optional[np.ndarray] = None, modality: str = "CT",
-                   device="cpu", **kw) -> "Volume":
+                   device=DEFAULT_DEVICE, **kw) -> "Volume":
+        """The volume of ``array`` on ``device`` (the card unless "cpu")."""
+        device = resolve_device(device)
         data = torch.from_numpy(np.ascontiguousarray(array)).to(device)
         if affine is None:
             affine = default_affine(array.shape, spacing)

@@ -5,8 +5,8 @@ The vertices round through float16 on the device (``marching.mesh_to_host``),
 as the JAX package's packed transfer does, so the records are
 byte-identical to its writer on the same vertices.  The mesh comes to the
 host in one synchronous copy (the JAX package's producer threads hid a slow
-device link) and the records are packed by the JAX package's native packer
-(invesalius3_tpu/native/meshpack.cpp), built from its source.
+device link) and the records are packed by the port's native packer
+(``csrc/meshpack.cpp``, the same arithmetic as the JAX package's).
 """
 
 from __future__ import annotations

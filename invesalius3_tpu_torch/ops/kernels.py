@@ -5,8 +5,9 @@
 the X sweep that reused the Y kernel on swapped axes
 (invesalius3_tpu/ops/watershed.py:256).  One bidirectional minimax sweep
 along ``axis`` updates the packed rank and the labels in place.  A CUDA
-tensor goes through ``csrc/watershed_sweep.cu``; only a CPU tensor takes the
-plain version, ``watershed_sweep_ref``.
+tensor goes through ``csrc/watershed_sweep.cu`` (the streaming kernel along
+z and y, the shared-memory tiled kernel along x); only a CPU tensor takes
+the plain version, ``watershed_sweep_ref``.
 """
 
 from __future__ import annotations
@@ -83,8 +84,9 @@ def _check(rank: torch.Tensor, lab: torch.Tensor, f: torch.Tensor,
 def watershed_sweep(rank: torch.Tensor, lab: torch.Tensor, f: torch.Tensor,
                     axis: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Bidirectional minimax sweep along ``axis``, in place; returns
-    (rank, lab).  CUDA tensors launch the kernel on the current stream;
-    CPU tensors take ``watershed_sweep_ref``."""
+    (rank, lab).  CUDA tensors launch the kernel on the current stream
+    (nothing is launched when the axis is shorter than 2: the sweep leaves
+    such a volume as it is); CPU tensors take ``watershed_sweep_ref``."""
     _check(rank, lab, f, axis)
     if rank.device.type == "cpu":
         return watershed_sweep_ref(rank, lab, f, axis)
@@ -92,6 +94,8 @@ def watershed_sweep(rank: torch.Tensor, lab: torch.Tensor, f: torch.Tensor,
         raise ValueError(f"unsupported device {rank.device}")
     if not (rank.is_contiguous() and lab.is_contiguous() and f.is_contiguous()):
         raise ValueError("the CUDA sweep needs C-contiguous tensors")
+    if rank.shape[axis] < 2 or rank.numel() == 0:
+        return rank, lab
     from invesalius3_tpu_torch import _build
 
     lib = _build.watershed_sweep_lib()
@@ -107,6 +111,15 @@ def watershed_sweep(rank: torch.Tensor, lab: torch.Tensor, f: torch.Tensor,
     return rank, lab
 
 
+# the shapes on which the CUDA kernel is held against the plain version on
+# the card (tests/test_torch_cuda.py, chip_smoke.py): x = 130 takes int16
+# labels as 4-byte pairs, x = 131 stages them; (3, 5, 2500) and (2100, 3, 5)
+# have rays many chunks longer than the X sweep's two-chunk ring; the last
+# three have rays of length 1 and 2
+SWEEP_CHECK_SHAPES = [(64, 64, 64), (11, 21, 130), (11, 21, 131), (3, 5, 2500),
+                      (2100, 3, 5), (1, 1, 9), (2, 2, 2), (1, 2, 1)]
+
+
 def sweep_case(shape, lab_dtype, seed: int):
     """A random sweep state (numpy rank, lab, f) for holding the kernel
     against its plain version: f in [0, 1000), two seeds at rank 0, and
@@ -120,7 +133,7 @@ def sweep_case(shape, lab_dtype, seed: int):
     rank[upper] = r.integers(1000 << DIST_BITS, 1100 << DIST_BITS, int(upper.sum()))
     lab[upper] = r.integers(-3, 7, int(upper.sum()))
     for i, idx in enumerate([(2 % shape[0], 1 % shape[1], 5 % shape[2]),
-                             (shape[0] - 2, shape[1] - 1, shape[2] - 3)]):
+                             tuple((s - k) % s for s, k in zip(shape, (2, 1, 3)))]):
         rank[idx] = 0
         lab[idx] = i + 1
     return rank, lab, f

@@ -31,6 +31,8 @@ Sweep = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, int],
 # the 26 neighbour offsets, relaxed one by one for 18/26-connectivity
 _OFFSETS_26 = [(a, b, c) for a in (-1, 0, 1) for b in (-1, 0, 1)
                for c in (-1, 0, 1) if (a, b, c) != (0, 0, 0)]
+# marker dtypes whose every value fits int16
+_NARROW_LABELS = (torch.bool, torch.uint8, torch.int8, torch.int16)
 
 
 def _neighbor_relax(rank, lab, f, offsets):
@@ -189,7 +191,11 @@ def watershed_ift_multigrid(image: torch.Tensor, markers: torch.Tensor,
     sweep = sweep or watershed_sweep
     f = torch.clamp(image.to(torch.int32), 0, 2**16 - 2).contiguous()
     out_dtype = torch.int32 if markers.dtype == torch.int32 else torch.int16
-    lab0 = markers.to(torch.int32).contiguous()
+    # labels go through the refine in the markers' width: int16 where every
+    # marker (and so every pooled label and the pool's -2^15 fill) fits it,
+    # which moves a sixth fewer bytes per sweep than the JAX package's int32
+    lab_dtype = torch.int16 if markers.dtype in _NARROW_LABELS else torch.int32
+    lab0 = markers.to(lab_dtype).contiguous()
 
     def solve(f_lvl, lab_lvl, level):
         if level == 0 or min(f_lvl.shape) <= 32:

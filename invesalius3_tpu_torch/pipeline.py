@@ -5,8 +5,7 @@ binary STL (port of bench.py ``make_ct``, the bench markers and
 
     from invesalius3_tpu_torch import pipeline
     ct = pipeline.make_ct(512)
-    res = pipeline.run(ct, pipeline.bench_markers(512), "out.stl",
-                       device="cuda")
+    res = pipeline.run(ct, pipeline.bench_markers(512), "out.stl")  # on the card
     print(res.mesh.n_verts, res.mesh.n_tris, res.times)
 """
 
@@ -20,6 +19,7 @@ import numpy as np
 import torch
 
 from invesalius3_tpu_torch.convert import to_device
+from invesalius3_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from invesalius3_tpu_torch.io import mesh_io
 from invesalius3_tpu_torch.ops import marching, mesh, watershed
 
@@ -70,13 +70,14 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def run(ct: np.ndarray, markers: np.ndarray, out_path, device="cpu",
+def run(ct: np.ndarray, markers: np.ndarray, out_path, device=DEFAULT_DEVICE,
         sweep: Optional[watershed.Sweep] = None,
         rounds: Optional[list] = None) -> Result:
-    """Run the flow once and write ``out_path``.  Each stage ends with a
-    device synchronise, so the stage times are the device's.  ``sweep`` and
-    ``rounds`` pass to ``watershed.watershed``."""
-    device = torch.device(device)
+    """Run the flow once on ``device`` (the card unless "cpu" is passed) and
+    write ``out_path``.  Each stage ends with a device synchronise, so the
+    stage times are the device's.  ``sweep`` and ``rounds`` pass to
+    ``watershed.watershed``."""
+    device = resolve_device(device)
     times: Dict[str, float] = {}
     t0 = time.perf_counter()
     ct_d = to_device(ct, device)

@@ -28,7 +28,7 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("shape", [(11, 21, 130), (64, 64, 64), (1, 1, 9)])
+@pytest.mark.parametrize("shape", kernels.SWEEP_CHECK_SHAPES)
 @pytest.mark.parametrize("lab_dtype", [np.int16, np.int32])
 @pytest.mark.parametrize("axis", [0, 1, 2])
 def test_sweep_kernel_bit_exact(cuda, axis, lab_dtype, shape):
@@ -39,7 +39,25 @@ def test_sweep_kernel_bit_exact(cuda, axis, lab_dtype, shape):
     got = kernels.watershed_sweep(
         *(torch.from_numpy(a.copy()).to(cuda) for a in case), axis)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES[axis] == before + 1
+    # an axis shorter than 2 has nothing to relax: no kernel is launched
+    assert kernels.LAUNCHES[axis] == before + (shape[axis] >= 2)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_sweep_kernel_unaligned_int16_labels(cuda):
+    """int16 labels at an odd element offset cannot go as 4-byte pairs:
+    the kernel stages them (x even, so only the pointer decides)."""
+    rank, lab, f = kernels.sweep_case((6, 7, 130), np.int16, seed=4)
+    want = kernels.watershed_sweep_ref(*(torch.from_numpy(a.copy()).to(cuda)
+                                         for a in (rank, lab, f)), 2)
+    buf = torch.zeros(lab.size + 1, dtype=torch.int16, device=cuda)
+    lab_d = buf[1:].view(lab.shape)
+    lab_d.copy_(torch.from_numpy(lab))
+    assert lab_d.data_ptr() % 4 == 2 and lab_d.is_contiguous()
+    got = kernels.watershed_sweep(torch.from_numpy(rank).to(cuda), lab_d,
+                                  torch.from_numpy(f).to(cuda), 2)
+    torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 
@@ -52,15 +70,17 @@ def test_sweep_kernel_rejects_non_contiguous(cuda):
                                 f.transpose(0, 2), 0)
 
 
+@pytest.mark.parametrize("marker_dtype", [np.int16, np.int32])
 @pytest.mark.parametrize("levels", [0, 2])
-def test_small_slice_kernel_equals_plain(cuda, levels, tmp_path):
+def test_small_slice_kernel_equals_plain(cuda, levels, marker_dtype, tmp_path):
     n = 48
-    ct, markers = pipeline.make_ct(n), pipeline.bench_markers(n)
+    ct, markers = pipeline.make_ct(n), pipeline.bench_markers(n).astype(marker_dtype)
     ct_d, m_d = torch.from_numpy(ct).to(cuda), torch.from_numpy(markers).to(cuda)
-    got = watershed.watershed(ct_d, m_d, multigrid_levels=levels)
+    rounds_k, rounds_p = [], []
+    got = watershed.watershed(ct_d, m_d, multigrid_levels=levels, rounds=rounds_k)
     want = watershed.watershed(ct_d, m_d, multigrid_levels=levels,
-                               sweep=kernels.watershed_sweep_ref)
-    assert torch.equal(got, want)
+                               sweep=kernels.watershed_sweep_ref, rounds=rounds_p)
+    assert torch.equal(got, want) and rounds_k == rounds_p
     mask = torch.where(got == 1, 255, 0).to(torch.uint8)
     dm = marching.mask_to_surface_device(mask, spacing=pipeline.SPACING)
     assert dm.n_tris > 0 and bool(torch.isfinite(dm.verts3v).all())

@@ -1,0 +1,53 @@
+"""The port stands alone: no module of ``invesalius3_tpu_torch`` and not
+``chip_smoke.py`` imports ``jax`` or the JAX package ``invesalius3_tpu``,
+and every native source the port builds lies inside the port's package."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+from invesalius3_tpu_torch import _build
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "invesalius3_tpu_torch"
+FORBIDDEN = {"jax", "jaxlib", "invesalius3_tpu"}
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_top_names(path: Path):
+    """(line, top-level package name) of every import in a module; relative
+    imports stay inside the package they are in."""
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.lineno, node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=[str(p.relative_to(ROOT)) for p in SOURCES])
+def test_no_jax_import(path):
+    bad = [(line, name) for line, name in _imported_top_names(path)
+           if name in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_scan_tells_the_packages_apart(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text("import invesalius3_tpu_torch.ops\n"
+                   "from invesalius3_tpu_torch import pipeline\n"
+                   "from invesalius3_tpu.ops import watershed\n"
+                   "import jax.numpy as jnp\n")
+    names = [n for _, n in _imported_top_names(src)]
+    assert names == ["invesalius3_tpu_torch", "invesalius3_tpu_torch",
+                     "invesalius3_tpu", "jax"]
+    assert [n for n in names if n in FORBIDDEN] == ["invesalius3_tpu", "jax"]
+
+
+@pytest.mark.parametrize("lib", sorted(_build.LIBS))
+def test_native_sources_are_the_ports_own(lib):
+    for src in _build.LIBS[lib].sources:
+        path = Path(src).resolve()
+        assert path.is_relative_to(PORT), f"{lib} builds {path}"
+        assert path.is_file()

@@ -15,7 +15,8 @@ from invesalius3_tpu_torch.ops import kernels
 torch.set_num_threads(1)
 
 INF = 2**31 - 1
-SHAPES = [(12, 20, 130), (11, 21, 130), (5, 3, 7)]
+# the last three: an odd x (131), and rays of length 1 and 2 along each axis
+SHAPES = [(12, 20, 130), (11, 21, 130), (5, 3, 7), (4, 2, 131), (1, 3, 2), (2, 1, 5)]
 
 
 def _scan_sweep_pair(rank, lab, f, axis):
@@ -42,9 +43,8 @@ def test_sweep_ref_matches_jax_scan(axis, lab_dtype, shape):
     np.testing.assert_array_equal(got_l.numpy(), want_l)
 
 
-@pytest.mark.parametrize("axis", [0, 1, 2])
-def test_sweep_wrapper_on_cpu_takes_the_plain_version(axis):
-    rank, lab, f = kernels.sweep_case((6, 9, 17), np.int32, seed=7)
+def _wrapper_takes_the_plain_version(shape, lab_dtype, axis):
+    rank, lab, f = kernels.sweep_case(shape, lab_dtype, seed=7)
     want = kernels.watershed_sweep_ref(torch.from_numpy(rank.copy()),
                                        torch.from_numpy(lab.copy()),
                                        torch.from_numpy(f), axis)
@@ -55,6 +55,17 @@ def test_sweep_wrapper_on_cpu_takes_the_plain_version(axis):
     assert kernels.LAUNCHES == before  # no kernel launched on the CPU
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_sweep_wrapper_on_cpu_takes_the_plain_version(axis):
+    _wrapper_takes_the_plain_version((6, 9, 17), np.int32, axis)
+
+
+@pytest.mark.parametrize("shape", [(4, 2, 131), (1, 3, 2)])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_sweep_wrapper_on_cpu_int16_edge_shapes(axis, shape):
+    _wrapper_takes_the_plain_version(shape, np.int16, axis)
 
 
 @pytest.mark.parametrize("bad", ["axis", "rank_dtype", "lab_dtype", "shape"])

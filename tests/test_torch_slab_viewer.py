@@ -98,7 +98,7 @@ def pair():
     slc.create_crop_box().set_limits(2, 20, 3, 15, 4, 18)
     slc.n_slabs = 4
     assert slc.current_mask is bone
-    port = convert.slice_from_jax(slc, bus=events.Publisher())
+    port = convert.slice_from_jax(slc, device="cpu", bus=events.Publisher())
     # the mask counter is process-wide in both packages; align it so new
     # masks get equal indices and colours
     mask_port.Mask.general_index = mask_jax.Mask.general_index
@@ -208,7 +208,8 @@ def test_mask_serialization_matches(pair):
         assert p.save_plist("mask.dat") == m.save_plist("mask.dat")
         mat = m.to_bordered_matrix()
         np.testing.assert_array_equal(p.to_bordered_matrix(), mat)
-        back = mask_port.Mask.load_plist(p.save_plist("mask.dat"), mat.tobytes())
+        back = mask_port.Mask.load_plist(p.save_plist("mask.dat"), mat.tobytes(),
+                                          device="cpu")
         np.testing.assert_array_equal(back.data.numpy(), np.asarray(m.data))
         assert (back.index, back.name, back.colour) == (m.index, m.name, tuple(m.colour))
 
@@ -312,7 +313,7 @@ def test_load_new_volume_and_window(pair):
     slc, port, log_j, log_p = pair
     ct = _ct()[::-1].copy()
     slc.load_new_volume(VolumeJax.from_numpy(ct, spacing=(1.0, 1.0, 2.0)))
-    port.load_new_volume(convert.volume_from_jax(slc.volume))
+    port.load_new_volume(convert.volume_from_jax(slc.volume, device="cpu"))
     for s in (slc, port):
         s.set_window(800.0, 200.0)
         s.create_new_mask()

@@ -45,7 +45,7 @@ def test_slice_matches_jax_flow(tmp_path):
     n = 36
     ct, markers = pipeline.make_ct(n), pipeline.bench_markers(n)
     want_tris = _jax_flow(ct, markers, tmp_path / "jax.stl")
-    res = pipeline.run(ct, markers, tmp_path / "port.stl")
+    res = pipeline.run(ct, markers, tmp_path / "port.stl", device="cpu")
     assert res.mesh.n_tris == want_tris > 500
     assert set(res.times) == {"h2d", "watershed", "marching", "smoothing", "stl"}
     head_w, rec_w = _records(tmp_path / "jax.stl")

@@ -68,7 +68,7 @@ def test_mask_to_surface_matches_jax(name, spacing):
         convert.to_numpy(dm.verts3v), np.asarray(jm.verts3v)[:, s:jm.n_verts])
     assert dm.vol_shape == tuple(jm.vol_shape)
     # the dedup structure is the JAX structure minus padding and orphan
-    ref = convert.from_jax_mesh(jm)
+    ref = convert.from_jax_mesh(jm, device="cpu")
     for field in ("inverse", "order", "group_of_sorted"):
         np.testing.assert_array_equal(convert.to_numpy(getattr(dm, field)),
                                       convert.to_numpy(getattr(ref, field)))
@@ -81,7 +81,7 @@ def test_mesh_to_host_fp16_matches_jax():
     jm = marching_jax.mask_to_surface_device(jnp.asarray(mask), spacing=spacing)
     s = _shift(jm)
     wv, wf = marching_jax.mesh_to_host(jm, fp16=True)
-    v, f = marching.mesh_to_host(convert.from_jax_mesh(jm))
+    v, f = marching.mesh_to_host(convert.from_jax_mesh(jm, device="cpu"))
     np.testing.assert_array_equal(v, wv[s:])
     np.testing.assert_array_equal(f, wf - s)
 
@@ -110,7 +110,7 @@ def test_ca_smoothing_stages_match_jax(name):
     jm = marching_jax.mask_to_surface_device(
         jnp.asarray(MASKS[name]()), spacing=(0.5, 0.5, 0.5))
     s, nv = _shift(jm), jm.n_verts
-    dm = convert.from_jax_mesh(jm)
+    dm = convert.from_jax_mesh(jm, device="cpu")
     want_flag, want_grid, want_w = _jax_weights(jm, t, tmax, bmin)
 
     normals = mesh.face_normals_3t(dm.verts3v, dm.faces3t)
@@ -145,7 +145,7 @@ def test_ca_smoothing_device_matches_jax(name):
         jnp.asarray(MASKS[name]()), spacing=(0.5, 0.5, 0.5))
     s = _shift(jm)
     want = np.asarray(mesh_jax.ca_smoothing_device(jm, 0.7, 3.0, 0.5, 10))
-    got = mesh.ca_smoothing_device(convert.from_jax_mesh(jm), 0.7, 3.0, 0.5, 10)
+    got = mesh.ca_smoothing_device(convert.from_jax_mesh(jm, device="cpu"), 0.7, 3.0, 0.5, 10)
     want = want[:, s:jm.n_verts]
     np.testing.assert_allclose(convert.to_numpy(got), want, rtol=0, atol=1e-4)
     moved = np.abs(want - np.asarray(jm.verts3v)[:, s:jm.n_verts]).max()
@@ -170,9 +170,9 @@ def test_write_stl_bytes_match_jax(tmp_path, name):
     want_path = tmp_path / "jax.stl"
     mesh_io_jax.write_stl_from_device(want_path,
                                       dataclasses.replace(jm, verts3v=out3v))
-    dm = convert.from_jax_mesh(jm)
+    dm = convert.from_jax_mesh(jm, device="cpu")
     dm = dataclasses.replace(dm, verts3v=convert.to_device(
-        np.asarray(out3v)[:, s:jm.n_verts]))
+        np.asarray(out3v)[:, s:jm.n_verts], device="cpu"))
     got_path = tmp_path / "port.stl"
     mesh_io.write_stl_from_device(got_path, dm)
     got = got_path.read_bytes()

@@ -11,7 +11,7 @@ from invesalius3_tpu.ops import morphology as morph_jax
 from invesalius3_tpu.ops import watershed as ws_jax
 from invesalius3_tpu.ops import windowing as win_jax
 from invesalius3_tpu_torch import pipeline
-from invesalius3_tpu_torch.ops import morphology, watershed, windowing
+from invesalius3_tpu_torch.ops import kernels, morphology, watershed, windowing
 
 torch.set_num_threads(1)
 
@@ -111,3 +111,34 @@ def test_watershed_ww_wl_branch():
     got = watershed.watershed(torch.from_numpy(ct), torch.from_numpy(markers),
                               use_ww_wl=True, wl=300.0, ww=1500.0)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("marker_dtype", [np.int16, np.int32])
+def test_multigrid_carries_labels_in_the_markers_dtype(marker_dtype):
+    """The refine loop carries int16 labels for int16 markers (the JAX
+    package carries int32) and int32 for int32 markers; labels and refine
+    rounds per level equal the JAX package's on an odd shape."""
+    ct = pipeline.make_ct(38)[:, 1:, 3:]                    # (38, 37, 35)
+    markers = np.zeros(ct.shape, marker_dtype)
+    markers[19, 18, 23] = 1
+    markers[19, 18, 17] = 2
+    markers[2, 2, 2] = 3
+    markers[30, 5, 7] = -1
+    ws_jax.LAST_REFINE_ROUNDS.clear()
+    want = np.asarray(ws_jax.watershed(jnp.asarray(ct), jnp.asarray(markers),
+                                       multigrid_levels=2))
+    seen = set()
+
+    def sweep(rank, lab, f, axis):
+        seen.add(lab.dtype)
+        return kernels.watershed_sweep(rank, lab, f, axis)
+
+    rounds = []
+    got = watershed.watershed(torch.from_numpy(ct), torch.from_numpy(markers),
+                              multigrid_levels=2, sweep=sweep, rounds=rounds)
+    assert seen == {getattr(torch, np.dtype(marker_dtype).name)}
+    assert got.dtype == seen.pop()
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert rounds == list(ws_jax.LAST_REFINE_ROUNDS)
+    # the coarse level (min side <= 32) solves from scratch; odd sides pool
+    assert [s for s, _ in rounds] == [(19, 19, 18), (38, 37, 35)]
