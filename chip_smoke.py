@@ -24,17 +24,24 @@ Phases, each fatal on failure (no phase catches an error):
    ``torch.profiler``: the device's idle share and its largest kernels;
 5. times the kernel against the plain version at 512^3 per axis, int32
    and int16 labels, with each case's byte bound and the kernel's share;
-6. holds the ray kernels against their plain PyTorch versions: LMIP bit for
-   bit, MIDA within 1 after the cast (int16, float32 and uint8 slabs, every
-   axis, inverted and narrowed slabs, degenerate windows, a constant slab);
+6. holds the ray kernels against their plain PyTorch versions on every
+   case of ``projection_kernels.ray_cases()``: LMIP bit for bit, MIDA within
+   1 after the cast, one launch counted per call (int16, float32 and uint8
+   slabs, every axis, inverted, narrowed and misaligned slabs, odd x, long
+   rows and rays of 1 and 2, MIDA's table at and past its capacity,
+   degenerate windows, a constant slab, a NaN), and MIDA's min/max pass bit
+   for bit against torch.aminmax;
 7. drives the slice viewer's frame path at 512^3 (``Slice.get_rendered_slice``
    on ``make_ct(512)``, window 400/40, the bone mask shown): every projection
    type but Normal, in every orientation, at slabs 64 and 512, once through
    the kernels (launch counts reset just before, read just after) and once
    through the plain versions; the frames must agree; then the median warm
    frame time per type and orientation;
-8. times the ray kernels against their plain versions at 512^3, full depth,
-   per axis (axis 2 both as a strided view and through a contiguous copy).
+8. times the ray kernels at 512^3, full depth, per axis (``time_rays.py``'s
+   method: many calls between one pair of CUDA events): the library call
+   alone and the wrapper, device launches a call from a profiler window,
+   the plain version, the byte bound and the share; then the min/max pass
+   against torch.aminmax.
 
 It prints the card's name and power limit first, a JSON line of the
 kernels before the last line, and as the last line
@@ -60,6 +67,8 @@ from invesalius3_tpu_torch.core.slice import Slice
 from invesalius3_tpu_torch.core.volume import Volume
 from invesalius3_tpu_torch.ops import kernels, watershed
 from invesalius3_tpu_torch.ops import projection_kernels as rays
+
+import time_rays as time_rays_lib
 
 KERNEL_SOURCE = "invesalius3_tpu_torch/csrc/watershed_sweep.cu"
 REPLACES = {  # sweep axis -> the TPU kernel it replaces
@@ -253,9 +262,9 @@ def main() -> int:
     errs = {(k, a): 0.0 for k in RAY_FNS for a in (0, 1, 2)}
     log("[6] ray kernels vs plain versions")
     check_ray_kernels(dev, errs)
-    ray_launches, volume = frame_path(dev, errs)
+    ray_launches, slc = frame_path(dev, errs)
     log("[8] ray kernels vs plain at full depth (int16, the frame's window)")
-    ray_times = time_rays(volume, errs)
+    ray_times = ray_timings(slc, errs)
 
     entries = [
         {"name": f"watershed_sweep[axis={axis}]", "route": "cuda",
@@ -399,24 +408,41 @@ def _err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float(d.max())
 
 
+def _same(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Bit for bit: equal dtype, shape and values, NaN where the other is."""
+    return (got.dtype == want.dtype and got.shape == want.shape
+            and bool(((got == want) | (torch.isnan(got) & torch.isnan(want))).all()))
+
+
 def check_ray_kernels(dev, errs) -> None:
-    """Phase 6: LMIP bit-exact, MIDA within 1 after the cast."""
+    """Phase 6: LMIP bit-exact, MIDA within 1 after the cast, one launch
+    counted per call; the min/max pass bit-exact against torch.aminmax."""
     f32_diff = 0.0
-    for label, vol, axis, narrow, inverted in rays.ray_cases():
-        slab = rays.case_slab(torch.from_numpy(vol).to(dev), axis, narrow, inverted)
+    for case in rays.ray_cases():
+        axis = case.axis
+        slab = rays.case_slab(case, dev)
         for k, params in (("lmip", rays.LMIP_PARAMS), ("mida", rays.MIDA_PARAMS)):
             kernel, plain = RAY_FNS[k]
             for a, b in params:
+                before = rays.LAUNCHES[k][axis]
                 got, want = kernel(slab, axis, a, b), plain(slab, axis, a, b)
                 torch.cuda.synchronize()
+                if rays.LAUNCHES[k][axis] != before + 1:
+                    raise AssertionError(f"{k}: {case.label} counted "
+                                         f"{rays.LAUNCHES[k][axis] - before} launches")
                 err = _err(got, want)
                 errs[(k, axis)] = max(errs[(k, axis)], err)
                 if slab.dtype == torch.float32 and k == "mida":
                     f32_diff = max(f32_diff, err)
-                if (k == "lmip" and not torch.equal(got, want)) or err > 1:
+                if (k == "lmip" and not _same(got, want)) or err > 1 \
+                        or got.dtype != want.dtype:
                     raise AssertionError(f"{k} kernel differs from its plain version: "
-                                         f"{label}, params {(a, b)}, max err {err}")
-        log(f"  {label}: lmip bit-exact, mida max err "
+                                         f"{case.label}, params {(a, b)}, max err {err}")
+        mm = rays.slab_minmax(slab)
+        if not _same(mm, rays.minmax_ref(slab)):
+            raise AssertionError(f"min/max pass differs from torch.aminmax: {case.label}: "
+                                 f"{mm.tolist()}")
+        log(f"  {case.label}: lmip bit-exact, min/max exact, mida max err "
             f"{errs[('mida', axis)]:g} so far")
     log(f"  largest MIDA difference on float32 slabs: {f32_diff!r}")
 
@@ -436,7 +462,7 @@ def _frames(n: int):
 
 def frame_path(dev, errs, n: int = FRAME_N):
     """Phase 7; returns (ray-kernel launch counts of the main path's run,
-    the n^3 volume on the card)."""
+    the Slice of the n^3 volume on the card)."""
     log(f"[7] slice viewer frame path at {n}^3")
     t0 = time.perf_counter()
     vol = Volume.from_numpy(pipeline.make_ct(n), spacing=pipeline.SPACING,
@@ -461,6 +487,8 @@ def frame_path(dev, errs, n: int = FRAME_N):
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if min(n for per_axis in launches.values() for n in per_axis.values()) <= 0:
         raise AssertionError(f"a ray kernel axis never launched: {launches}")
+    if any(launches[k][a] != 4 for k in RAY_FNS for a in (0, 1, 2)):
+        raise AssertionError(f"expected 4 launches per ray kernel and axis: {launches}")
 
     t0 = time.perf_counter()
     n_diff = 0
@@ -500,12 +528,13 @@ def frame_path(dev, errs, n: int = FRAME_N):
                 ms.append(float(np.median(t)))
             log(f"    {const.PROJECTION_NAMES[p]:>13s} {o:>8s}: "
                 f"{ms[0]:8.3f} / {ms[1]:8.3f}")
-    return launches, slc.matrix
+    return launches, slc
 
 
 def _event_ms(fn, reps: int):
-    """Milliseconds per call by CUDA events: one warm-up, then the best of
-    ``reps``; returns (best, the output)."""
+    """Milliseconds of one call by CUDA events (for the slow plain
+    versions): one warm-up, then the best of ``reps``; returns (best, the
+    output)."""
     out = fn()
     best = float("inf")
     for _ in range(reps):
@@ -548,34 +577,37 @@ def ray_bound_ms(k: str, volume, axis: int, params) -> float:
     return (n + plane) * volume.element_size() / HBM_BYTES_PER_S * 1e3
 
 
-def time_rays(volume, errs):
-    """Phase 8: the wrappers (aminmax and the output cast included) against
-    the plain versions on the frame path's volume, full depth, per axis,
-    with the frame path's parameters (wl = 40 for both LMIP bounds; MIDA
-    (40, 40)).  Axis 2 is timed as the strided view the wrapper walks and,
-    for comparison, through a contiguous (X, Z, Y) copy walked along axis
-    0, the copy included."""
-    params = (40.0, 40.0)
+def ray_timings(slc, errs):
+    """Phase 8 at full depth on the frame path's volume, per kernel and
+    axis, with the frame path's parameters (LMIP (40, 40), MIDA (40, 40)):
+    kernel ms (the library call alone) and wrapper ms by many calls between
+    one pair of CUDA events, device launches per call from a profiler
+    window (``time_rays.time_kernels``), the plain version's ms, the byte
+    bound and the kernel's share of it; then the min/max pass against
+    torch.aminmax, and the LMIP and MIDA frames' project and frame ms
+    (``time_rays.time_frames``)."""
+    volume = slc.matrix
     out = {}
+    timed = time_rays_lib.time_kernels(rays, volume, log)
     for k, (kernel, plain) in RAY_FNS.items():
         for axis in (0, 1, 2):
-            p_ms, want = _event_ms(lambda: plain(volume, axis, *params), 2)
-            ms, got = _event_ms(lambda: kernel(volume, axis, *params), 5)
+            p_ms, want = _event_ms(lambda: plain(volume, axis, *time_rays_lib.PARAMS), 1)
+            got = kernel(volume, axis, *time_rays_lib.PARAMS)
             err = _err(got, want)
-            detail = f"{ms:.4f} ms"
-            if axis == 2:
-                copy_ms, got_c = _event_ms(
-                    lambda: kernel(volume.movedim(2, 0).contiguous(), 0, *params), 5)
-                err = max(err, _err(got_c, want))
-                detail = f"view {ms:.4f} ms, copy {copy_ms:.4f} ms"
             errs[(k, axis)] = max(errs[(k, axis)], err)
-            if (k == "lmip" and err != 0) or err > 1:
+            if (k == "lmip" and not _same(got, want)) or err > 1:
                 raise AssertionError(f"{k} axis {axis} at full size differs (max {err})")
-            bound = ray_bound_ms(k, volume, axis, params)
-            out[(k, axis)] = {"ms": ms, "plain_ms": p_ms, "bound_ms": bound,
+            row = timed[(k, axis)]
+            bound = ray_bound_ms(k, volume, axis, time_rays_lib.PARAMS)
+            out[(k, axis)] = {"ms": row["kernel_ms"], "plain_ms": p_ms, "bound_ms": bound,
                               "bound_by": "bytes", "library_ms": None}
-            log(f"  {k} axis {axis}: kernel {detail}; plain {p_ms:.3f} ms; "
-                f"max err {err:g}; bound {bound:.4f} ms, share {bound / ms:.1%}")
+            log(f"  {k} axis {axis}: kernel {row['kernel_ms']:.4f} ms, wrapper "
+                f"{row['wrapper_ms']:.4f} ms, {row['launches_per_call']:g} device "
+                f"launches a call; plain {p_ms:.3f} ms; max err {err:g}; bound "
+                f"{bound:.4f} ms, share {bound / row['kernel_ms']:.1%} (kernel), "
+                f"{bound / row['wrapper_ms']:.1%} (wrapper)")
+    time_rays_lib.time_minmax(rays, volume, log)
+    time_rays_lib.time_frames(slc, const, volume.shape[0], log)
     return out
 
 

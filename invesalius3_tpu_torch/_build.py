@@ -4,10 +4,10 @@ Three shared libraries, each with a plain C interface loaded through ctypes:
 
 - ``watershed_sweep``: ``csrc/watershed_sweep.cu``, compiled by ``nvcc`` for
   ``sm_90a`` (Hopper).  Only a CUDA tensor ever asks for it.
-- ``ray_projections``: ``csrc/ray_projections.cu`` (LMIP and MIDA), the same
-  way, with ``-fmad=false`` so that no product and sum is contracted into a
-  fused multiply-add: the kernels then round as PyTorch's separate
-  elementwise kernels do.
+- ``ray_projections``: ``csrc/ray_projections.cu`` (LMIP, MIDA and MIDA's
+  min/max pass), the same way, with ``-fmad=false`` so that no product and
+  sum is contracted into a fused multiply-add: the kernels then round as
+  PyTorch's separate elementwise kernels do.
 - ``meshpack``: the host STL packer ``csrc/meshpack.cpp`` (the port's own
   copy of the JAX package's record packer), compiled by ``g++``.
 
@@ -76,8 +76,10 @@ LIBS: Dict[str, _Lib] = {
     "ray_projections": _Lib(
         _nvcc, NVCC_FLAGS + ["-fmad=false"],
         (_HERE / "csrc" / "ray_projections.cu",),
-        {"lmip_rays": [P, P, I, I64, I64, I64, I64, I64, I64, F, F, P],
-         "mida_rays": [P, P, I, I64, I64, I64, I64, I64, I64, P, F, F, P]}),
+        {"lmip_rays": [P, P, I, I] + [I64] * 6 + [F, F, P],
+         "mida_rays": [P, P, I, I] + [I64] * 12 + [P, F, F, P],
+         "slab_minmax": [P, I] + [I64] * 6 + [P, P],
+         "ray_workspace_bytes": []}),
     "meshpack": _Lib(
         _gxx, GXX_FLAGS, (_HERE / "csrc" / "meshpack.cpp",),
         {"stl_pack_mt": [P, I64, P, I64, P, I]}),

@@ -89,21 +89,28 @@ def test_small_slice_kernel_equals_plain(cuda, levels, marker_dtype, tmp_path):
 RAY_CASES = rays.ray_cases()
 
 
+def _same(got, want):
+    """Bit for bit, NaN where the other is NaN."""
+    return (got.dtype == want.dtype and got.shape == want.shape
+            and bool(((got == want) | (torch.isnan(got) & torch.isnan(want))).all()))
+
+
 @pytest.mark.parametrize("case", range(len(RAY_CASES)),
-                         ids=[c[0] for c in RAY_CASES])
+                         ids=[c.label for c in RAY_CASES])
 def test_ray_kernels_against_plain(cuda, case):
     """LMIP bit-exact; MIDA within atol 1 after the cast to an integer dtype
     (float32 is expected bit-exact too: the library is built without FMA
-    contraction; the bound here is the JAX package's own)."""
-    _, vol, axis, narrow, inverted = RAY_CASES[case]
-    slab = rays.case_slab(torch.from_numpy(vol).to(cuda), axis, narrow, inverted)
+    contraction; the bound here is the JAX package's own); one launch
+    counted per call."""
+    case = RAY_CASES[case]
+    axis = case.axis
+    slab = rays.case_slab(case, cuda)
     for tmin, tmax in rays.LMIP_PARAMS:
         before = rays.LAUNCHES["lmip"][axis]
         got = rays.lmip_rays(slab, axis, tmin, tmax)
         torch.cuda.synchronize()
         assert rays.LAUNCHES["lmip"][axis] == before + 1
-        assert got.dtype == slab.dtype
-        assert torch.equal(got, rays.lmip_ref(slab, axis, tmin, tmax))
+        assert _same(got, rays.lmip_ref(slab, axis, tmin, tmax))
     for wl, ww in rays.MIDA_PARAMS:
         before = rays.LAUNCHES["mida"][axis]
         got = rays.mida_rays(slab, axis, wl, ww)
@@ -116,10 +123,55 @@ def test_ray_kernels_against_plain(cuda, case):
         assert bool((both_nan | (diff <= 1)).all())
 
 
+@pytest.mark.parametrize("case", range(len(RAY_CASES)),
+                         ids=[c.label for c in RAY_CASES])
+def test_minmax_pass_is_aminmax(cuda, case):
+    slab = rays.case_slab(RAY_CASES[case], cuda)
+    before = rays.LAUNCHES["minmax"][0]
+    got = rays.slab_minmax(slab)
+    torch.cuda.synchronize()
+    assert rays.LAUNCHES["minmax"][0] == before + 1
+    assert _same(got, torch.stack(torch.aminmax(slab)).to(torch.float32))
+
+
+def dtype_np(dtype):
+    return {torch.int16: np.int16, torch.uint8: np.uint8, torch.float32: np.float32}[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.int16, torch.uint8, torch.float32])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_mida_runs_only_its_kernels(cuda, monkeypatch, axis, dtype):
+    """For the kernels' own dtypes the wrapper launches the min/max pass and
+    the walk and nothing else: no torch.aminmax, no cast_like_jax."""
+    slab = torch.from_numpy(rays.ray_case((20, 24, 70), dtype_np(dtype), 3)).to(cuda)
+    want = rays.mida_ref(slab, axis, 40.0, 400.0)
+
+    def refuse(*a, **k):
+        raise AssertionError("called on the kernel path")
+    monkeypatch.setattr(torch, "aminmax", refuse)
+    monkeypatch.setattr(rays, "cast_like_jax", refuse)
+    got = rays.mida_rays(slab, axis, 40.0, 400.0)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert bool(((got.double() - want.double()).abs() <= 1).all())
+
+
+def test_widened_dtype_takes_the_cast(cuda):
+    """int32 is walked as float32 and cast like JAX."""
+    slab = torch.from_numpy(rays.ray_case((9, 13, 40), np.int16, 2).astype(np.int32)).to(cuda)
+    for axis in (0, 1, 2):
+        got = rays.mida_rays(slab, axis, 40.0, 400.0)
+        want = rays.mida_ref(slab, axis, 40.0, 400.0)
+        assert got.dtype == torch.int32
+        assert bool(((got.double() - want.double()).abs() <= 1).all())
+        assert torch.equal(rays.lmip_rays(slab, axis, 30.0, 500.0),
+                           rays.lmip_ref(slab, axis, 30.0, 500.0))
+
+
 @pytest.mark.parametrize("via_copy", [False, True])
 def test_ray_kernels_axis2_both_routes(cuda, via_copy):
-    """Axis 2 walked as the strided view, and as a contiguous (X, Z, Y)
-    copy along axis 0 (the route chip_smoke.py times for comparison)."""
+    """Axis 2 walked as the strided view (the rows route), and as a
+    contiguous (X, Z, Y) copy along axis 0 (the columns route)."""
     slab = torch.from_numpy(rays.ray_case((40, 33, 70), np.int16, 7)).to(cuda)
     work, axis = (slab.movedim(2, 0).contiguous(), 0) if via_copy else (slab, 2)
     assert torch.equal(rays.lmip_rays(work, axis, 30.0, 500.0),

@@ -281,3 +281,158 @@ def test_wrappers_refuse_other_devices():
     for fn in (rays.lmip_rays, rays.mida_rays):
         with pytest.raises(ValueError, match="device"):
             fn(v, 0, 1.0, 2.0)
+
+
+# --------------------------------------------------------------------------
+# the ray kernels' edge cases (shared with the card's tests and
+# chip_smoke.py phase [6]) through the plain versions, against the JAX
+# package's projections and its Pallas kernels in interpret mode
+# --------------------------------------------------------------------------
+
+EDGE_WORDS = ("odd x", "offset 1", "long rows", "rays of", "every other", "capacity",
+              "full range", "NaN")
+EDGE_CASES = [c for c in rays.ray_cases() if any(w in c.label for w in EDGE_WORDS)]
+
+
+def _mida_close_nan(got, want, dtype):
+    both = np.isnan(got) & np.isnan(want) if got.dtype.kind == "f" else False
+    _mida_close(np.where(both, 0, got), np.where(both, 0, want), dtype)
+
+
+@pytest.mark.parametrize("case", EDGE_CASES, ids=[c.label for c in EDGE_CASES])
+def test_ray_refs_on_the_edge_cases(case):
+    slab = rays.case_slab(case, "cpu")
+    v, axis, dtype = slab.numpy(), case.axis, case.volume.dtype
+    (tmin, tmax), (wl, ww) = _window(dtype)
+    lmip = rays.lmip_ref(slab, axis, tmin, tmax).numpy()
+    mida = rays.mida_ref(slab, axis, wl, ww).numpy()
+    np.testing.assert_array_equal(lmip, np.asarray(proj_jax.lmip(v, axis, tmin, tmax)))
+    _mida_close_nan(mida, np.asarray(proj_jax.mida(v, axis, wl, ww)), dtype)
+    v0 = jnp.asarray(np.ascontiguousarray(np.moveaxis(v, axis, 0)))
+    np.testing.assert_array_equal(
+        lmip, np.asarray(pallas_kernels.lmip_axis0(v0, tmin, tmax)))
+    _mida_close_nan(mida, np.asarray(pallas_kernels.mida_axis0(v0, wl, ww)), dtype)
+    if "NaN" in case.label:   # the slab's min and max are NaN: so is every pixel
+        assert np.isnan(mida).all()
+
+
+def test_edge_cases_build_the_layouts_they_name():
+    labels = [c.label for c in rays.ray_cases()]
+    assert len(labels) == len(set(labels))
+    for case in EDGE_CASES:
+        slab = rays.case_slab(case, "cpu")
+        want = case.volume[:, ::case.step, ::case.step]
+        assert slab.shape == want.shape
+        assert slab.storage_offset() == case.offset
+        np.testing.assert_array_equal(slab.numpy(), want)
+    by_label = {c.label: c for c in EDGE_CASES}
+    # odd x: int16 rows start off 4-byte alignment on the rows route
+    assert by_label["(7, 9, 101) int16 odd x axis 2"].volume.shape[2] % 2
+    stepped = [c for c in rays.ray_cases() if c.step != 1]
+    assert len(stepped) == 3
+    for case in stepped:   # rays and columns strided: the columns route
+        slab = rays.case_slab(case, "cpu")
+        g = rays.ray_geometry(slab.shape, slab.stride(), case.axis)
+        assert g[1] != 1 and g[5] != 1
+        assert rays.ray_route(g[1], g[5]) == rays.ROUTE_COLUMNS
+    cap = rays.TABLE_CAP[torch.int16]
+    for label, fits in (("at", True), ("one past", False)):
+        v = by_label[f"int16 range {label} the table's capacity axis 0"].volume
+        assert rays.table_fits(float(v.min()), float(v.max()), torch.int16) is fits
+        assert int(v.max()) - int(v.min()) + 1 == cap + (not fits)
+
+
+# --------------------------------------------------------------------------
+# the wrappers' choices
+# --------------------------------------------------------------------------
+
+STORE_VALUES = np.concatenate([
+    CAST_VALUES, np.random.default_rng(7).uniform(-7e4, 7e4, 2000).astype(np.float32),
+    np.array([32767.0, 32767.5, -32768.0, -32768.5, 254.99, 255.0, 0.0, -0.0,
+              -0.99], np.float32)])
+
+
+@pytest.mark.parametrize("dtype", [torch.int16, torch.uint8, torch.float32])
+def test_store_cast_is_cast_like_jax(dtype):
+    x = torch.from_numpy(STORE_VALUES)
+    got, want = rays.store_cast(x, dtype), cast_like_jax(x, dtype)
+    assert got.dtype == want.dtype == dtype
+    assert torch.equal(got, want) or torch.equal(got.isnan(), want.isnan())
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("dtype,stored", [
+    (torch.int16, torch.int16), (torch.uint8, torch.uint8), (torch.float32, torch.float32),
+    (torch.int32, torch.float32), (torch.int8, torch.float32),
+    (torch.float64, torch.float32), (torch.float16, torch.float32)])
+def test_store_dtype(dtype, stored):
+    assert rays.store_dtype(dtype) == stored
+
+
+def _plan(view, axis):
+    g = rays.ray_geometry(view.shape, view.stride(), axis)
+    return g, rays.ray_route(g[1], g[5])
+
+
+@pytest.mark.parametrize("axis,route", [(0, rays.ROUTE_COLUMNS), (1, rays.ROUTE_COLUMNS),
+                                        (2, rays.ROUTE_ROWS)])
+def test_route_by_axis_of_a_volume_and_its_narrowed_slabs(axis, route):
+    v = torch.zeros((8, 9, 10), dtype=torch.int16)
+    for view in (v, v.narrow(axis, 2, 5), v.narrow((axis + 1) % 3, 1, 3),
+                 torch.flip(v.narrow(axis, 1, 4), dims=(axis,))):
+        g, r = _plan(view, axis)
+        assert r == route
+        assert g[0] == view.shape[axis] and g[2] * g[3] * g[0] == view.numel()
+
+
+def test_route_of_other_layouts():
+    v = torch.zeros((8, 9, 10), dtype=torch.int16)
+    # a permuted view: axis 0's rays are contiguous rows (the rows route);
+    # axis 2's rays are 90 apart and its columns 10 (the columns route)
+    assert _plan(v.permute(2, 1, 0), 0)[1] == rays.ROUTE_ROWS
+    assert _plan(v.permute(2, 1, 0), 2)[1] == rays.ROUTE_COLUMNS
+    # rays of length 1 along x: both strides 1, the columns route
+    assert _plan(torch.zeros((4, 6, 1)), 2)[1] == rays.ROUTE_COLUMNS
+    assert _plan(torch.zeros((4, 6, 2)), 2)[1] == rays.ROUTE_ROWS
+    # a step-sliced x: rays 2 apart, the columns route
+    assert _plan(v[:, :, ::2], 2)[1] == rays.ROUTE_COLUMNS
+    assert _plan(v[:, :, ::2], 0)[1] == rays.ROUTE_COLUMNS
+
+
+@pytest.mark.parametrize("view", ["whole", "narrow0", "narrow1", "narrow2", "permuted",
+                                  "stepped", "expanded", "offset"])
+def test_flat_view_covers_the_slab(view):
+    base = torch.arange(8 * 9 * 10, dtype=torch.float32).reshape(8, 9, 10)
+    t = {"whole": base, "narrow0": base.narrow(0, 2, 3), "narrow1": base.narrow(1, 2, 3),
+         "narrow2": base.narrow(2, 2, 3), "permuted": base.permute(2, 0, 1),
+         "stepped": base[:, ::2, 1::3], "expanded": base[:1, :1].expand(4, 9, 10),
+         "offset": base.reshape(-1)[1:1 + 7 * 9 * 10].view(7, 9, 10)}[view]
+    d0, d1, n, s0, s1, s2 = rays.flat_view(t.shape, t.stride())
+    flat = torch.as_strided(base, (d0, d1, n), (s0, s1, s2), t.storage_offset())
+    assert torch.equal(flat.reshape(-1).sort().values, t.reshape(-1).sort().values)
+    if view in ("whole", "narrow0", "permuted", "offset"):
+        assert (d0, d1, s2) == (1, 1, 1)       # one contiguous run
+    if view in ("narrow1", "narrow2"):
+        assert (d0, s2) == (1, 1)              # rows of one contiguous run
+
+
+@pytest.mark.parametrize("dtype,vmin,vmax,fits", [
+    (torch.int16, -1024.0, 3071.0, True), (torch.int16, -1024.0, 3072.0, False),
+    (torch.int16, -1020.0, 1219.0, True), (torch.int16, 77.0, 77.0, True),
+    (torch.uint8, 0.0, 255.0, True), (torch.float32, 0.0, 1.0, False),
+    (torch.int32, 0.0, 1.0, False)])
+def test_table_fits(dtype, vmin, vmax, fits):
+    assert rays.table_fits(vmin, vmax, dtype) is fits
+
+
+@pytest.mark.parametrize("dtype", [np.int16, np.uint8, np.float32])
+def test_slab_minmax_on_the_cpu_is_aminmax(dtype):
+    v = torch.from_numpy(_vol((9, 13, 150), dtype, seed=70))
+    for axis in AXES:
+        slab = v.narrow(axis, 2, 5)
+        want = torch.tensor([float(slab.min()), float(slab.max())], dtype=torch.float32)
+        assert torch.equal(rays.slab_minmax(slab), want)
+    if dtype == np.float32:
+        w = v.clone()
+        w[3, 4, 5] = float("nan")
+        assert torch.isnan(rays.slab_minmax(w)).all()
