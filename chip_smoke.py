@@ -5,8 +5,9 @@
 
 Phases, each fatal on failure (no phase catches an error):
 
-1. builds the CUDA sweep kernel, the CUDA ray kernels (LMIP, MIDA) and the
-   STL packer from the repository's sources, all compilers at once;
+1. builds the CUDA sweep kernel, the CUDA ray kernels (LMIP, MIDA), the
+   STL packer and the QEM decimator from the repository's sources, all
+   compilers at once;
 2. holds the sweep kernel against its plain PyTorch version, bit for bit,
    for axes 0, 1, 2 with int16 and int32 labels, on 64^3 and the edge
    shapes of ``kernels.SWEEP_CHECK_SHAPES`` (an even and an odd x, rays
@@ -41,7 +42,22 @@ Phases, each fatal on failure (no phase catches an error):
    method: many calls between one pair of CUDA events): the library call
    alone and the wrapper, device launches a call from a profiler window,
    the plain version, the byte bound and the share; then the min/max pass
-   against torch.aminmax.
+   against torch.aminmax;
+9. runs the headless app's surface flow at 512^3 on the card: ``make_ct(512)``
+   (spacing 0.5 mm) written as an uncompressed NIfTI, then ``app.main``
+   (--import-file, -t Bone, -e STL, -s .inv3, --algorithm ca_smoothing) once
+   to warm up and once timed (its .inv3 save timed); then, stage by stage on
+   a Slice of that file, ``create_surface_from_mask`` for Default,
+   context-aware smoothing with grid and with mesh propagation,
+   keep-largest, and quality "Low" (QEM decimation by 0.4; 36-45 s at 512^3
+   on the card's host, under the 60 s that would move it to 256^3), the STL
+   export and the .inv3 open.  Every undecimated surface must be closed,
+   oriented and finite; Default and smoothed surfaces have one triangle
+   count; grid and mesh propagation move the vertices alike; keep-largest
+   leaves one component; "Low" reaches its triangle target; volumes and
+   areas are finite and positive; the app's STL is the smoothed surface's
+   records; the reopened .inv3 holds the same mask and surface.  No kernel
+   lies on this path (the counts are printed).
 
 It prints the card's name and power limit first, a JSON line of the
 kernels before the last line, and as the last line
@@ -61,11 +77,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from invesalius3_tpu_torch import _build, pipeline
+from invesalius3_tpu_torch import _build, app, pipeline
 from invesalius3_tpu_torch import constants as const
+from invesalius3_tpu_torch.core.project import Project
 from invesalius3_tpu_torch.core.slice import Slice
 from invesalius3_tpu_torch.core.volume import Volume
-from invesalius3_tpu_torch.ops import kernels, watershed
+from invesalius3_tpu_torch.io import mesh_io, nifti
+from invesalius3_tpu_torch.ops import kernels, mesh, watershed
 from invesalius3_tpu_torch.ops import projection_kernels as rays
 
 import time_rays as time_rays_lib
@@ -91,6 +109,7 @@ REF_TRIS, REF_VERTS = 6_168_140, 3_084_021 - 1
 # refine rounds per multigrid level of the 512^3 flow (the JAX package's)
 REF_ROUNDS = [((128, 128, 128), 14), ((256, 256, 256), 10), ((512, 512, 512), 24)]
 HBM_BYTES_PER_S = 3.35e12  # an H100 SXM's device-memory rate (data sheet)
+APP_N = 512  # the app flow's CT side (phase 9)
 
 
 def log(*a) -> None:
@@ -171,13 +190,13 @@ def check_sweep_kernel(dev) -> None:
         log(f"  {shape}: bit-exact on every axis, int16 and int32 labels")
 
 
-def check_mesh(dm) -> None:
+def check_closed(verts3v: torch.Tensor, faces3t: torch.Tensor) -> None:
     """Finite vertices, face ids in range, every edge in exactly two faces
     and every directed edge once (closed and consistently oriented)."""
-    V = dm.n_verts
-    if not bool(torch.isfinite(dm.verts3v).all()):
+    V = verts3v.shape[1]
+    if not bool(torch.isfinite(verts3v).all()):
         raise AssertionError("non-finite vertices")
-    f = dm.faces3t.long()
+    f = faces3t.long()
     if int(f.min()) < 0 or int(f.max()) >= V:
         raise AssertionError("face id out of range")
     a = torch.cat([f[0], f[1], f[2]])
@@ -188,6 +207,10 @@ def check_mesh(dm) -> None:
         raise AssertionError("mesh is not closed (edge not in two faces)")
     if torch.unique(a * V + b).numel() != a.numel():
         raise AssertionError("mesh is not consistently oriented")
+
+
+def check_mesh(dm) -> None:
+    check_closed(dm.verts3v, dm.faces3t)
 
 
 def time_sweeps(dev, n: int, lab_dtype):
@@ -265,6 +288,11 @@ def main() -> int:
     ray_launches, slc = frame_path(dev, errs)
     log("[8] ray kernels vs plain at full depth (int16, the frame's window)")
     ray_times = ray_timings(slc, errs)
+    del slc
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_app_") as d:
+        app_flow(dev, Path(d))
 
     entries = [
         {"name": f"watershed_sweep[axis={axis}]", "route": "cuda",
@@ -609,6 +637,154 @@ def ray_timings(slc, errs):
     time_rays_lib.time_minmax(rays, volume, log)
     time_rays_lib.time_frames(slc, const, volume.shape[0], log)
     return out
+
+
+def _surface_on(s, dev):
+    """A host surface's (3, V) verts and (3, F) faces on the card."""
+    return (torch.from_numpy(s.vertices).to(dev).t(),
+            torch.from_numpy(s.faces).to(dev).t())
+
+
+def _check_measures(name: str, s) -> None:
+    if not (np.isfinite([s.volume, s.area]).all() and s.volume > 0 and s.area > 0):
+        raise AssertionError(f"{name}: volume {s.volume}, area {s.area}")
+
+
+def _timed_surface(slc, name: str, **opts):
+    """One create_surface_from_mask with its stage seconds printed."""
+    times = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = slc.create_surface_from_mask(times=times, **opts)
+    total = time.perf_counter() - t0
+    log(f"  {name}: {total:.3f} s; " + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+        + f"; {len(s.faces)} tris, {len(s.vertices)} verts, volume {s.volume!r} mm^3, "
+        f"area {s.area!r} mm^2")
+    _check_measures(name, s)
+    return s
+
+
+def _bone_slice(path: Path, dev, stages=None):
+    """A Slice of the NIfTI at ``path`` on the card with the CT Bone mask,
+    each stage's seconds recorded in ``stages`` (NIfTI read, h2d,
+    threshold)."""
+    stages = {} if stages is None else stages
+    t0 = time.perf_counter()
+    img = nifti.read_nifti(path)
+    stages["nifti_read"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vol = Volume.from_numpy(img.data, spacing=img.spacing, affine=img.affine, device=dev)
+    torch.cuda.synchronize()
+    stages["h2d"] = time.perf_counter() - t0
+    slc = Slice(vol)
+    t0 = time.perf_counter()
+    slc.create_new_mask(threshold_range=const.THRESHOLD_PRESETS_CT["Bone"])
+    torch.cuda.synchronize()
+    stages["threshold"] = time.perf_counter() - t0
+    return slc
+
+
+def app_flow(dev, tmp: Path, n: int = APP_N) -> None:
+    """Phase 9: the headless app and the surface cases at n^3 on the card."""
+    import os
+
+    log(f"[9] the headless app's surface flow at {n}^3")
+    os.environ["XDG_CONFIG_HOME"] = str(tmp / "config")  # the app's session
+    kernels.reset_launches()
+    rays.reset_launches()
+    t0 = time.perf_counter()
+    ct_path = tmp / "ct.nii"
+    nifti.write_nifti(ct_path, pipeline.make_ct(n), spacing=pipeline.SPACING)
+    log(f"  make_ct({n}) written as {ct_path.name}: {time.perf_counter() - t0:.2f} s (host)")
+    argv = ["--import-file", str(ct_path), "-t", "Bone", "-e", str(tmp / "bone.stl"),
+            "-s", str(tmp / "proj.inv3"), "--algorithm", "ca_smoothing"]
+    log(f"  app.main({' '.join(a.replace(str(tmp), '$TMP') for a in argv)})")
+    stages = {}
+    save = Project.save
+
+    def timed_save(self, *a, **kw):  # the app's own .inv3 save, timed
+        t0 = time.perf_counter()
+        save(self, *a, **kw)
+        stages["inv3_save"] = time.perf_counter() - t0
+
+    for run in ("warm-up", "timed"):
+        torch.cuda.reset_peak_memory_stats()
+        Project.save = timed_save if run == "timed" else save
+        t0 = time.perf_counter()
+        try:
+            if app.main(argv, device=dev) != 0:
+                raise AssertionError("app.main failed")
+        finally:
+            Project.save = save
+        torch.cuda.synchronize()
+        log(f"  {run} run: {time.perf_counter() - t0:.3f} s; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    slc = _bone_slice(ct_path, dev, stages)
+    torch.cuda.reset_peak_memory_stats()
+    surfs = {
+        "Default": _timed_surface(slc, "Default"),
+        "ca_grid": _timed_surface(slc, "ca_smoothing, grid propagation",
+                                  algorithm="ca_smoothing"),
+        "ca_mesh": _timed_surface(slc, "ca_smoothing, mesh propagation",
+                                  algorithm="ca_smoothing",
+                                  ca_options={"propagate": "mesh"}),
+        "keep_largest": _timed_surface(slc, "Default, keep_largest", keep_largest=True),
+    }
+    log(f"  peak device memory of the four cases: "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for name, s in surfs.items():
+        check_closed(*_surface_on(s, dev))
+    log("  every undecimated surface closed, oriented, finite")
+    n_tris = {k: len(s.faces) for k, s in surfs.items()}
+    if not n_tris["Default"] == n_tris["ca_grid"] == n_tris["ca_mesh"]:
+        raise AssertionError(f"triangle counts differ: {n_tris}")
+    base = surfs["Default"].vertices
+    d_grid = np.linalg.norm(surfs["ca_grid"].vertices - base, axis=1)
+    d_mesh = np.linalg.norm(surfs["ca_mesh"].vertices - base, axis=1)
+    gap = float(np.abs(surfs["ca_grid"].vertices - surfs["ca_mesh"].vertices).max())
+    log(f"  grid vs mesh propagation: mean move {d_grid.mean():.5f} vs "
+        f"{d_mesh.mean():.5f} mm, largest vertex gap {gap:.5f} mm")
+    if abs(d_grid.mean() - d_mesh.mean()) >= 0.15 * max(d_mesh.mean(), 1e-6) or gap > 0.5:
+        raise AssertionError("grid and mesh propagation disagree")
+    comps = np.unique(mesh.mesh_components(surfs["keep_largest"].faces,
+                                           len(surfs["keep_largest"].vertices)))
+    if len(comps) != 1 or n_tris["keep_largest"] >= n_tris["Default"]:
+        raise AssertionError(f"keep_largest: {len(comps)} components, "
+                             f"{n_tris['keep_largest']} of {n_tris['Default']} tris")
+    log(f"  keep_largest: one component, {n_tris['keep_largest']} of "
+        f"{n_tris['Default']} triangles")
+
+    low = _timed_surface(slc, 'quality "Low"', quality="Low")
+    target = int(n_tris["Default"] * (1.0 - const.SURFACE_QUALITY["Low"][3]))
+    if not target - 2 <= len(low.faces) <= target:
+        raise AssertionError(f"Low: {len(low.faces)} tris, target {target}")
+
+    ref = surfs["ca_grid"]
+    stl = (tmp / "bone.stl").read_bytes()
+    if stl[84:] != mesh_io.stl_records(ref.vertices, ref.faces).tobytes() \
+            or int.from_bytes(stl[80:84], "little") != len(ref.faces):
+        raise AssertionError("the app's STL is not the smoothed surface")
+    log("  the app's STL read back equals the smoothed surface's records")
+    t0 = time.perf_counter()
+    ref.export(tmp / "export.stl")
+    stages["export_stl"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    opened = Project.open(tmp / "proj.inv3", device=dev)
+    torch.cuda.synchronize()
+    stages["inv3_open"] = time.perf_counter() - t0
+    m = next(iter(opened.mask_dict.values()))
+    s = next(iter(opened.surface_dict.values()))
+    if not torch.equal(m.data, slc.current_mask.data):
+        raise AssertionError("reopened .inv3: the mask differs")
+    if not np.array_equal(s.faces, ref.faces) or not np.allclose(
+            s.vertices, ref.vertices, rtol=1e-5, atol=1e-4):
+        raise AssertionError("reopened .inv3: the surface differs")
+    log("  the app's .inv3 reopened: same mask, same faces, vertices within the "
+        "VTP text's 6 digits")
+    log("  stages (s): " + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()))
+    log(f"  kernel launches on this path: sweeps {dict(kernels.LAUNCHES)}, rays "
+        f"{ {k: dict(v) for k, v in rays.LAUNCHES.items()} } (no kernel lies on it)")
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Build the port's native libraries from the repository's sources.
 
-Three shared libraries, each with a plain C interface loaded through ctypes:
+Four shared libraries, each with a plain C interface loaded through ctypes:
 
 - ``watershed_sweep``: ``csrc/watershed_sweep.cu``, compiled by ``nvcc`` for
   ``sm_90a`` (Hopper).  Only a CUDA tensor ever asks for it.
@@ -10,6 +10,8 @@ Three shared libraries, each with a plain C interface loaded through ctypes:
   PyTorch's separate elementwise kernels do.
 - ``meshpack``: the host STL packer ``csrc/meshpack.cpp`` (the port's own
   copy of the JAX package's record packer), compiled by ``g++``.
+- ``decimate``: the host QEM edge-collapse decimator ``csrc/decimate.cpp``
+  (the port's own copy of the JAX package's), compiled by ``g++``.
 
 Every source lies in this package: the port builds nothing from the JAX
 package's tree.
@@ -57,7 +59,8 @@ def _nvcc() -> str:
 def _gxx() -> str:
     gxx = shutil.which("g++")
     if gxx is None:
-        raise RuntimeError("g++ not found: it builds the STL packer")
+        raise RuntimeError("g++ not found: it builds the STL packer and the "
+                           "decimator")
     return gxx
 
 
@@ -83,6 +86,9 @@ LIBS: Dict[str, _Lib] = {
     "meshpack": _Lib(
         _gxx, GXX_FLAGS, (_HERE / "csrc" / "meshpack.cpp",),
         {"stl_pack_mt": [P, I64, P, I64, P, I]}),
+    "decimate": _Lib(
+        _gxx, GXX_FLAGS, (_HERE / "csrc" / "decimate.cpp",),
+        {"decimate_qem": [P, I64, P, I64, I64, P, P, P, P]}),
 }
 
 _locks = {name: threading.Lock() for name in LIBS}
@@ -139,6 +145,10 @@ def ray_projections_lib() -> ctypes.CDLL:
 
 def meshpack_lib() -> ctypes.CDLL:
     return _load("meshpack")
+
+
+def decimate_lib() -> ctypes.CDLL:
+    return _load("decimate")
 
 
 def build_all() -> Dict[str, dict]:

@@ -1,7 +1,8 @@
-"""Framework constants the slice viewer's path needs (the subset of
+"""Framework constants the port's paths need (the subset of
 invesalius3_tpu/constants.py that the port uses; values equal, as the tests
 check): orientations, projection ids, mask voxel codes, mask boolean ops,
-CT threshold presets and the mask undo depth.
+threshold presets, surface quality presets, the hole-filling cap, the
+.inv3 format version and the mask undo depth.
 """
 
 from __future__ import annotations
@@ -77,6 +78,29 @@ THRESHOLD_PRESETS_CT = {
     "Soft Tissue": (-700, 225),
     "Custom": (0, 0),
 }
+
+THRESHOLD_PRESETS_OTHER = {
+    "Bone": (200, 1500),
+    "Soft Tissue": (-300, 100),
+    "Custom": (0, 0),
+}
+
+# Surface quality presets: (image_spacing_scale, smooth_iterations,
+# smooth_relaxation, decimate_reduction) (reference constants.py:359-364)
+SURFACE_QUALITY = {
+    "Low": (3, 2, 0.3000, 0.4),
+    "Medium": (2, 2, 0.3000, 0.4),
+    "High": (0, 1, 0.3000, 0.1),
+    "Optimal *": (0, 2, 0.3000, 0.0),
+}
+
+DEFAULT_SURFACE_QUALITY = "Optimal *"
+
+# Surface post-processing defaults (reference surface_process.py:397-415)
+FILL_HOLES_MAX_SIZE = 300.0
+
+# Project file format (reference constants.py:32)
+INV3_FORMAT_VERSION = 1.1
 
 # Mask undo-history depth (reference mask.py:79)
 MASK_HISTORY_SIZE = 50

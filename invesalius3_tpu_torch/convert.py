@@ -1,6 +1,7 @@
 """Numpy bridge: inputs onto a device, outputs back to the host, and the
-JAX package's state carried over into the port's: its device mesh, and the
-slice viewer's volume, masks and ``Slice``.
+JAX package's state carried over into the port's: its device mesh, the
+slice viewer's volume, masks and ``Slice``, and the app's surfaces and
+project.
 
 The system runs no model; its "weights" are its inputs and the state one
 stage hands the next.  This module moves that state across, so each port
@@ -145,4 +146,63 @@ def slice_from_jax(slc, device=DEFAULT_DEVICE, bus=None):
     if box is not None:
         out.crop_box = Box(box.shape, box.spacing)
         out.crop_box.set_limits(*box.limits)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the app's state: a JAX Surface / Project as the port's
+# ---------------------------------------------------------------------------
+
+
+def surface_from_jax(s):
+    """The port's ``Surface`` equal to a JAX ``core.surface.Surface``.
+
+    A JAX surface made from a marching mesh that padded holds the padding
+    orphan at vertex id 0 (decimation keeps it; keep-largest drops it).
+    When no face references vertex 0, it is dropped and every face id
+    shifts down by one, as the port's own surfaces have no orphan.  Index,
+    name and the other metadata are carried over without advancing the
+    process-wide surface counter."""
+    from invesalius3_tpu_torch.core.surface import Surface
+
+    verts = np.array(s.vertices, np.float32)
+    faces = np.array(s.faces, np.int32)
+    if len(verts) and not (faces == 0).any():
+        verts, faces = verts[1:], faces - 1
+    out = Surface(vertices=verts, faces=faces, index=s.index, name=s.name,
+                  colour=tuple(s.colour), transparency=s.transparency,
+                  volume=s.volume, area=s.area, is_shown=s.is_shown,
+                  category=s.category)
+    if hasattr(s, "filled_holes"):
+        out.filled_holes = s.filled_holes
+    return out
+
+
+def project_from_jax(p, device=DEFAULT_DEVICE):
+    """The port's ``Project`` in the state of a JAX ``core.project.Project``:
+    metadata, the volume, masks (``mask_from_jax``), surfaces
+    (``surface_from_jax``), measurements and image versions, on ``device``
+    (the card unless "cpu")."""
+    import copy
+
+    from invesalius3_tpu_torch.core.project import Project
+
+    device = resolve_device(device)
+    out = Project()
+    for attr in ("name", "modality", "original_orientation", "window", "level",
+                 "compress"):
+        setattr(out, attr, getattr(p, attr))
+    out.threshold_range = tuple(p.threshold_range)
+    out.image_fiducials = np.array(p.image_fiducials)
+    out.measurement_dict = copy.deepcopy(p.measurement_dict)
+    data = None
+    if p.volume is not None:
+        out.volume = volume_from_jax(p.volume, device)
+        data = p.volume.data
+    out.mask_dict = {i: mask_from_jax(m, device) for i, m in p.mask_dict.items()}
+    out.surface_dict = {i: surface_from_jax(s) for i, s in p.surface_dict.items()}
+    # a version that is the volume's own array shares the port's tensor
+    out.image_versions = [
+        (lbl, out.volume.data if mat is data else to_device(mat, device))
+        for lbl, mat in p.image_versions]
     return out

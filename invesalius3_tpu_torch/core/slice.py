@@ -9,14 +9,14 @@ only the RGB plane to the host.  The mask and colour overlays and the
 canvas drawing then run as the same numpy code as in the JAX package, so
 the bytes are identical.
 
-Not ported yet (they need modules the port does not have): surface
-creation, ``calc_image_density``, ``calc_mask_area``,
-``import_mask_from_nifti``, ``apply_image_filter`` and
-``apply_reorientation``.
+Surface creation runs on the mask's device (``core/surface.py``).  Not
+ported yet (they need modules the port does not have): ``calc_mask_area``,
+``apply_image_filter`` and ``apply_reorientation``.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -282,6 +282,31 @@ class Slice:
         self.bus.send_message("slice.mask_thresholded", index=mask.index,
                               threshold=(tmin, tmax))
 
+    # -- surface creation (reference CreateSurfaceFromIndex :1338) ---------------
+    def create_surface_from_mask(self, mask: Optional[Mask] = None, **options):
+        """``core.surface.create_surface_from_mask`` of ``mask`` (the current
+        mask by default) at the volume's spacing, on the mask's device."""
+        from invesalius3_tpu_torch.core.surface import create_surface_from_mask
+
+        mask = mask or self.current_mask
+        return create_surface_from_mask(mask, self.spacing, **options)
+
+    # -- mask statistics (reference slice_.py:2283) -------------------------------
+    def calc_image_density(self, mask: Optional[Mask] = None):
+        """(min, max, mean, std) of the image's non-NaN voxels under the
+        visible mask, in float32 on the volume's device, std with ddof 0 as
+        ``jnp.nanstd``; an empty mask gives (0, 0, 0, 0), a mask over NaN
+        alone four NaNs."""
+        mask = mask or self.current_mask
+        sel = self.matrix[mask.visible_array()].to(torch.float32)
+        if sel.numel() == 0:
+            return 0, 0, 0, 0
+        sel = sel[~torch.isnan(sel)]
+        if sel.numel() == 0:
+            return (float("nan"),) * 4
+        return (float(sel.min()), float(sel.max()), float(sel.mean()),
+                float(sel.std(correction=0)))
+
     def do_boolean_op(self, op: int, index1: int, index2: int) -> Mask:
         """Combine two masks into a new one: union / diff / intersection /
         xor over the visible (>= 127) voxels, written as 0/255."""
@@ -331,6 +356,30 @@ class Slice:
         mask.apply(crop_mask(mask.data, box.limits))
         self.bus.send_message("slice.mask_cropped", index=mask.index,
                               limits=box.limits)
+
+    # -- mask import (reference control.py:264 OnImportMaskNifti) ----------------
+    def import_mask_from_nifti(self, path, name: str = "") -> Mask:
+        """A NIfTI label map as a new mask (voxels > 0 become 255) on the
+        volume's device.  Volume and mask both go through the same RAS
+        canonicalisation, so their orientations agree."""
+        from invesalius3_tpu_torch.convert import to_device
+        from invesalius3_tpu_torch.io.nifti import read_nifti
+
+        img = read_nifti(path)
+        if tuple(img.data.shape) != tuple(self.matrix.shape):
+            raise ValueError(
+                f"mask shape {img.data.shape} does not match volume "
+                f"{tuple(self.matrix.shape)}")
+        m = Mask(name=name or Path(str(path)).name.split(".")[0])
+        m.spacing = self.spacing
+        m.threshold_range = (0, 255)
+        labels = to_device(img.data, self.matrix.device)
+        m.data = (labels > 0).to(torch.uint8) * const.MASK_THRESHOLD_IN
+        m.was_edited = True
+        self.masks[m.index] = m
+        self.current_mask = m
+        self.bus.send_message("slice.mask_added", index=m.index, name=m.name)
+        return m
 
     # -- image versions -------------------------------------------------------------
     @property

@@ -53,9 +53,14 @@ class Volume:
                    spacing: Tuple[float, float, float] = (1.0, 1.0, 1.0),
                    affine: Optional[np.ndarray] = None, modality: str = "CT",
                    device=DEFAULT_DEVICE, **kw) -> "Volume":
-        """The volume of ``array`` on ``device`` (the card unless "cpu")."""
+        """The volume of ``array`` on ``device`` (the card unless "cpu").
+        A read-only array (a file's bytes) is copied, so the tensor never
+        aliases memory it may not own."""
         device = resolve_device(device)
-        data = torch.from_numpy(np.ascontiguousarray(array)).to(device)
+        a = np.ascontiguousarray(array)
+        if not a.flags.writeable:
+            a = a.copy()
+        data = torch.from_numpy(a).to(device)
         if affine is None:
             affine = default_affine(array.shape, spacing)
         return cls(data=data, spacing=tuple(spacing), affine=affine,

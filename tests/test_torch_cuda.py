@@ -198,3 +198,67 @@ def test_slab_frames_kernel_equals_plain(cuda, orientation):
             assert np.array_equal(got, want)
     axis = const.ORIENTATION_AXIS[orientation]
     assert rays.LAUNCHES["lmip"][axis] == 4 and rays.LAUNCHES["mida"][axis] == 4
+
+
+def test_decimate_library_builds_from_the_ports_source():
+    """The QEM decimator is a host library (g++): it builds and runs with or
+    without a card, and its build failing would raise, not fall back."""
+    from invesalius3_tpu_torch import _build, native
+
+    lib = _build.decimate_lib()
+    assert hasattr(lib, "decimate_qem")
+    v = np.array([[x, y, z] for z in (0, 1) for y in (0, 1) for x in (0, 1)], np.float32)
+    f = np.array([[0, 2, 1], [1, 2, 3], [4, 5, 6], [5, 7, 6], [0, 1, 4], [1, 5, 4],
+                  [2, 6, 3], [3, 6, 7], [0, 4, 2], [2, 4, 6], [1, 3, 5], [3, 7, 5]],
+                 np.int32)
+    dv, df = native.decimate_qem(v, f, 0.5)
+    assert len(df) <= 6 and df.max() < len(dv)
+
+
+def _bone_slice(dev, n=64):
+    vol = Volume.from_numpy(pipeline.make_ct(n), spacing=pipeline.SPACING, device=dev)
+    slc = Slice(vol)
+    slc.create_new_mask(threshold_range=const.THRESHOLD_PRESETS_CT["Bone"])
+    return slc
+
+
+@pytest.mark.parametrize("case", ["Default", "Default-Low", "ca_grid", "ca_mesh",
+                                  "ca_grid-keep_largest"])
+def test_surface_flow_card_equals_cpu(cuda, case):
+    """create_surface_from_mask at 64^3 on the card against the CPU: the
+    same faces; Default vertices equal, smoothed vertices within one
+    float16 step (reductions run in another order on the card); volume and
+    area within a relative 1e-5."""
+    name, _, extra = case.partition("-")
+    opts = {"ca_grid": {"algorithm": "ca_smoothing"},
+            "ca_mesh": {"algorithm": "ca_smoothing",
+                        "ca_options": {"propagate": "mesh"}}}.get(name, {})
+    if extra == "Low":
+        opts["quality"] = "Low"
+    if extra == "keep_largest":
+        opts["keep_largest"] = True
+    got = _bone_slice(cuda).create_surface_from_mask(**opts)
+    want = _bone_slice(torch.device("cpu")).create_surface_from_mask(**opts)
+    np.testing.assert_array_equal(got.faces, want.faces)
+    step = np.spacing(np.abs(want.vertices).astype(np.float16)).astype(np.float32)
+    assert (np.abs(got.vertices - want.vertices) <= (step if name != "Default" else 0)).all()
+    np.testing.assert_allclose([got.volume, got.area], [want.volume, want.area], rtol=1e-5)
+
+
+def test_app_on_the_card_equals_cpu(cuda, tmp_path, monkeypatch):
+    from invesalius3_tpu_torch import app
+    from invesalius3_tpu_torch.core.project import Project
+    from invesalius3_tpu_torch.io import nifti
+
+    monkeypatch.setenv("XDG_CONFIG_HOME", str(tmp_path))
+    nifti.write_nifti(tmp_path / "ct.nii", pipeline.make_ct(48), spacing=pipeline.SPACING)
+    for side, dev in (("card", cuda), ("cpu", "cpu")):
+        assert app.main(["--import-file", str(tmp_path / "ct.nii"), "-t", "Bone",
+                         "-e", str(tmp_path / f"{side}.stl"),
+                         "-s", str(tmp_path / f"{side}.inv3")], device=dev) == 0
+    assert (tmp_path / "card.stl").read_bytes() == (tmp_path / "cpu.stl").read_bytes()
+    card, cpu = (Project.open(tmp_path / f"{s}.inv3", device=d)
+                 for s, d in (("card", cuda), ("cpu", "cpu")))
+    assert card.volume.data.device.type == "cuda"
+    assert torch.equal(card.mask_dict[next(iter(card.mask_dict))].data.cpu(),
+                       cpu.mask_dict[next(iter(cpu.mask_dict))].data)

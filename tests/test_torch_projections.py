@@ -53,7 +53,7 @@ def _mida_close(got, want, dtype):
 
 def test_constants_equal_the_jax_package():
     names = [n for n in dir(const) if n[0].isupper()]
-    assert len(names) == 29
+    assert len(names) == 34
     for n in names:
         assert getattr(const, n) == getattr(const_jax, n), n
 
