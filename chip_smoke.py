@@ -57,7 +57,28 @@ Phases, each fatal on failure (no phase catches an error):
    leaves one component; "Low" reaches its triangle target; volumes and
    areas are finite and positive; the app's STL is the smoothed surface's
    records; the reopened .inv3 holds the same mask and surface.  No kernel
-   lies on this path (the counts are printed).
+   lies on this path (the counts are printed);
+10. drives the slice viewer's mask-editing tools on a Slice of
+   ``make_ct(512)`` (spacing 0.5 mm) as the viewer server's endpoints call
+   them: the CT Bone mask (``count_regions`` gives the shell and the
+   island, ``largest_component`` is the shell); an erase stroke carving
+   enclosed pockets in the shell, then ``Mask.fill_holes_auto(1000, 6)``,
+   which must refill exactly those pockets with 254, with undo and redo; a
+   paint stroke; the four threshold brushes; a stroke with stamps at 0 and
+   511 on every axis (each stroke held to a stamp-by-stamp numpy oracle);
+   ``count_regions`` and ``largest_component`` of the edited mask against
+   ``scipy.ndimage.label``; ``floodfill_threshold`` from a shell seed against
+   the shell's component of ``label`` and scipy's iterated dilation;
+   ``select_part`` and "remove" on the island (the visible count falls by
+   the island's size); ``region_grow_dynamic`` and
+   ``region_grow_confidence`` from a soft-tissue seed; the automatic hole
+   fill against scipy; ``apply_image_filter`` with each filter in 3D and in
+   2D (the axes in turn; median at size 3); ``calc_mask_area`` against an
+   exposed-face count in float64.  Per op: the wall time (device
+   synchronised; pure ops twice, first and warm), the fixpoint checks and
+   the peak device memory.  The same sequence first runs at 64^3 on the card
+   and on the CPU, and every mask, label array and filtered image must be
+   equal.  No kernel lies on this path (the counts must stay 0).
 
 It prints the card's name and power limit first, a JSON line of the
 kernels before the last line, and as the last line
@@ -75,6 +96,7 @@ import time
 from pathlib import Path
 
 import numpy as np
+import scipy.ndimage as ndi
 import torch
 
 from invesalius3_tpu_torch import _build, app, pipeline
@@ -83,8 +105,10 @@ from invesalius3_tpu_torch.core.project import Project
 from invesalius3_tpu_torch.core.slice import Slice
 from invesalius3_tpu_torch.core.volume import Volume
 from invesalius3_tpu_torch.io import mesh_io, nifti
-from invesalius3_tpu_torch.ops import kernels, mesh, watershed
+from invesalius3_tpu_torch.ops import (connected, floodfill, kernels, mesh, morphology,
+                                       watershed)
 from invesalius3_tpu_torch.ops import projection_kernels as rays
+from invesalius3_tpu_torch.ops import threshold as thr_ops
 
 import time_rays as time_rays_lib
 
@@ -110,6 +134,8 @@ REF_TRIS, REF_VERTS = 6_168_140, 3_084_021 - 1
 REF_ROUNDS = [((128, 128, 128), 14), ((256, 256, 256), 10), ((512, 512, 512), 24)]
 HBM_BYTES_PER_S = 3.35e12  # an H100 SXM's device-memory rate (data sheet)
 APP_N = 512  # the app flow's CT side (phase 9)
+MASK_EDIT_N = 512  # the mask-editing path's CT side (phase 10)
+MASK_EDIT_SMALL = 64  # its sequence on the card and on the CPU
 
 
 def log(*a) -> None:
@@ -293,6 +319,8 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_app_") as d:
         app_flow(dev, Path(d))
+    torch.cuda.empty_cache()
+    mask_editing(dev)
 
     entries = [
         {"name": f"watershed_sweep[axis={axis}]", "route": "cuda",
@@ -785,6 +813,332 @@ def app_flow(dev, tmp: Path, n: int = APP_N) -> None:
     log("  stages (s): " + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()))
     log(f"  kernel launches on this path: sweeps {dict(kernels.LAUNCHES)}, rays "
         f"{ {k: dict(v) for k, v in rays.LAUNCHES.items()} } (no kernel lies on it)")
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the mask-editing path
+# ---------------------------------------------------------------------------
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+class OpTimes:
+    """Phase 10's record per op: the wall time with the device synchronised
+    (a pure op twice: first and warm), the fixpoint checks (``checks`` or
+    ``rounds`` lists the op fills) and the peak device memory."""
+
+    def __init__(self, dev):
+        self.dev = dev
+        self.stats = {}
+
+    def __call__(self, name: str, fn, repeat: bool = True):
+        times = []
+        for _ in range(2 if repeat else 1):
+            checks = []
+            _sync(self.dev)
+            if self.dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = fn(checks)
+            _sync(self.dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = (torch.cuda.max_memory_allocated() / 2**30 if self.dev.type == "cuda"
+                else None)
+        self.stats[name] = {"ms": times[-1], "first_ms": times[0], "checks": checks,
+                            "peak_gib": peak}
+        first = f" (first {times[0]:.2f})" if repeat else " (one call)"
+        log(f"    {name}: {times[-1]:.2f} ms{first}; checks {checks or '-'}; peak "
+            + (f"{peak:.2f} GiB" if peak is not None else "n/a"))
+        return out
+
+
+def _untimed(name: str, fn, repeat: bool = True):
+    return fn([])
+
+
+def _host(t) -> np.ndarray:
+    return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def _stroke_oracle(before, image, brush, centers, op, value=254, tmin=0, tmax=0):
+    """A stroke stamp by stamp in numpy, each stamp clamped as
+    ``lax.dynamic_slice`` clamps it (the JAX package's scan)."""
+    out = before.copy()
+    for c in np.asarray(centers):
+        start = [min(max(int(ci) - s // 2, 0), m - s)
+                 for ci, s, m in zip(c, brush.shape, out.shape)]
+        sl = tuple(slice(st, st + s) for st, s in zip(start, brush.shape))
+        roi = out[sl]
+        if op == "paint":
+            roi[brush] = value
+            continue
+        inside = (image[sl] >= tmin) & (image[sl] <= tmax)
+        if op == "thresh":
+            roi[brush] = np.where(inside, 254, 1)[brush]
+        elif op == "thresh_erase":
+            roi[brush] = np.where(inside, 1, 254)[brush]
+        elif op == "thresh_add":
+            roi[brush & inside] = 254
+        else:
+            roi[brush & ~inside] = 1
+    return out
+
+
+def _same_partition(got: np.ndarray, ref: np.ndarray, n: int) -> None:
+    """Two labelings 0..n of one volume name the same parts (0 the same)."""
+    fwd = np.full(n + 1, -1, np.int64)
+    fwd[ref.ravel()] = got.ravel()
+    back = np.full(n + 1, -1, np.int64)
+    back[got.ravel()] = ref.ravel()
+    if not (np.array_equal(fwd[ref], got) and np.array_equal(back[got], ref)
+            and fwd[0] == 0):
+        raise AssertionError("the labels differ from scipy.ndimage.label's")
+
+
+def _holes_oracle(mask: np.ndarray, max_size: int, strct) -> np.ndarray:
+    imask = ~(mask > 127)
+    lab, _ = ndi.label(imask, strct)
+    sizes = np.bincount(lab.ravel())
+    sizes[0] = 0
+    per = sizes[lab]
+    return np.where(imask & (per > 0) & (per <= max_size), np.uint8(254), mask)
+
+
+def _exposed_area(vis: np.ndarray, spacing) -> float:
+    """Exposed-face area in float64 (the volume's border counts as inside)."""
+    sx, sy, sz = spacing
+    area = 0.0
+    for axis, face in ((0, sx * sy), (1, sx * sz), (2, sy * sz)):
+        n = vis.shape[axis]
+        lo = [slice(None)] * 3
+        hi = [slice(None)] * 3
+        lo[axis], hi[axis] = slice(0, n - 1), slice(1, n)
+        a, b = vis[tuple(lo)], vis[tuple(hi)]
+        area += face * (int((a & ~b).sum()) + int((b & ~a).sum()))
+    return area
+
+
+def edit_sequence(dev, n: int, timed=_untimed, oracle: bool = False) -> dict:
+    """Phase 10's calls on a Slice of ``make_ct(n)`` on ``dev``, in the
+    order the viewer server's endpoints make them (/api/threshold,
+    /api/brush, /api/mask/fill_holes, undo and redo, /api/mask/part,
+    /api/floodfill, /api/filter, /api/mask/stats).  ``timed(name, fn)``
+    runs each op; ``oracle`` holds the results to numpy and scipy on the
+    host.  Returns every result by name (tensors on ``dev``)."""
+    s6 = morphology.structure_3d(6)
+    out = {}
+    slc = Slice(Volume.from_numpy(pipeline.make_ct(n), spacing=pipeline.SPACING, device=dev))
+    image = _host(slc.matrix) if oracle else None
+    c = n // 2
+    shell_x = c + round(0.39 * n)  # the middle of the shell, 0.36n to 0.42n
+    bone = const.THRESHOLD_PRESETS_CT["Bone"]
+
+    # 1. threshold and the parts
+    timed("threshold", lambda ch: thr_ops.threshold_new_mask(slc.matrix, *bone))
+    mask = slc.create_new_mask(threshold_range=bone)
+    out["threshold"] = mask.data
+    vis = mask.visible_array()
+    out["regions"] = timed("count_regions", lambda ch: connected.count_regions(vis, 6, ch))
+    out["largest"] = timed("largest_component",
+                           lambda ch: connected.largest_component(vis, 6, ch))
+    if oracle:
+        ref, k = ndi.label(_host(vis), s6)
+        if out["regions"][1] != 2 or k != 2:
+            raise AssertionError(f"count_regions {out['regions'][1]}, scipy {k}: want 2")
+        _same_partition(out["regions"][0], ref, k)
+        if not np.array_equal(_host(out["largest"]), ref == ref[c, c, shell_x]):
+            raise AssertionError("largest_component is not the shell")
+        log(f"  threshold: {int(_host(vis).sum())} visible voxels, 2 regions (scipy: 2), "
+            "the largest is the shell")
+
+    # 2. brush strokes
+    def stroke(name, brush, centers, op, value=254, tmin=226, tmax=3071):
+        before = _host(mask.data) if oracle else None
+        cen = np.asarray(centers, np.int32)
+        if op == "paint":
+            fn = lambda ch: morphology.paint_brush_trajectory(  # noqa: E731
+                mask.data, brush, cen, value, brush.shape)
+        else:
+            fn = lambda ch: morphology.paint_brush_trajectory_threshold(  # noqa: E731
+                mask.data, slc.matrix, brush, cen, tmin, tmax, brush.shape, op)
+        new = timed(name, fn)
+        mask.apply(new)
+        out[name] = mask.data
+        if oracle:
+            want = _stroke_oracle(before, image, brush, cen, op, value, tmin, tmax)
+            if not np.array_equal(_host(new), want):
+                raise AssertionError(f"{name} differs from the stamp-by-stamp oracle")
+        return before
+
+    sx = slc.spacing[0]
+    r_vox = min(4, max(0, int((0.06 * n - 3) / 2)))  # a pocket inside the shell
+    dot = morphology.brush_element(max(r_vox * sx, 0.4 * sx), slc.spacing, const.BRUSH_CIRCLE)
+    far = n - shell_x  # the shell's middle on the low side of each axis
+    pockets = [(c, c, shell_x), (c, c, far), (c, shell_x, c), (c, far, c),
+               (shell_x, c, c), (far, c, c)]
+    before = stroke("erase stroke", dot, pockets, "paint", const.MASK_ERASED)
+    erased = mask.data
+    filled = timed("fill_holes_automatically",
+                   lambda ch: connected.fill_holes_automatically(erased, 1000, 6, ch))
+    timed("Mask.fill_holes_auto", lambda ch: mask.fill_holes_auto(1000, 6), repeat=False)
+    if not torch.equal(mask.data, filled):
+        raise AssertionError("Mask.fill_holes_auto differs from fill_holes_automatically")
+    out["filled"] = mask.data
+    timed("Mask.undo", lambda ch: mask.undo(), repeat=False)
+    out["undone"] = mask.data
+    undo_ok = torch.equal(mask.data, erased)
+    timed("Mask.redo", lambda ch: mask.redo(), repeat=False)
+    if not (undo_ok and torch.equal(mask.data, filled)):
+        raise AssertionError("undo / redo of the hole fill do not give back its two sides")
+    if oracle:
+        carved = _host(erased) != before
+        want = np.where(carved, np.uint8(254), before)
+        if not np.array_equal(_host(filled), want):
+            raise AssertionError("fill_holes_auto did not refill exactly the carved pockets")
+        if not np.array_equal(_host(filled), _holes_oracle(_host(erased), 1000, s6)):
+            raise AssertionError("fill_holes_automatically differs from scipy's")
+        log(f"  erase stroke: {int(carved.sum())} voxels in {len(pockets)} pockets "
+            f"(brush {dot.shape}), all refilled with 254 (scipy agrees); undo and "
+            "redo give back both sides")
+    ball = morphology.brush_element(2.0 * sx, slc.spacing, const.BRUSH_CIRCLE)
+    stroke("paint stroke", ball, [(c, c, c + round(0.2 * n) + k) for k in range(6)], "paint")
+    inner = c + round(0.36 * n)  # across the shell's inner edge
+    across = [(c - 3, c + 1, inner + k) for k in range(-3, 4)]
+    for op in ("thresh", "thresh_erase", "thresh_add", "thresh_erase_only"):
+        stroke(f"{op} stroke", ball, across, op)
+    edges = [(0, 0, 0), (n - 1, n - 1, n - 1), (0, n - 1, c), (n - 1, 0, c), (c, 0, n - 1),
+             (c, n - 1, 0)]
+    stroke("edge stroke", ball, edges, "paint")
+
+    # 3. the parts of the edited mask
+    vis = mask.visible_array()
+    out["regions_after"] = timed("count_regions (edited)",
+                                 lambda ch: connected.count_regions(vis, 6, ch))
+    out["largest_after"] = timed("largest_component (edited)",
+                                 lambda ch: connected.largest_component(vis, 6, ch))
+    island = (c, c, c)
+    if oracle:
+        ref, k = ndi.label(_host(vis), s6)
+        _same_partition(out["regions_after"][0], ref, k)
+        sizes = np.bincount(ref.ravel())
+        sizes[0] = 0
+        if out["regions_after"][1] != k or not np.array_equal(
+                _host(out["largest_after"]), ref == int(np.argmax(sizes))):
+            raise AssertionError("the edited mask's parts differ from scipy's")
+        island_size = int(sizes[ref[island]])
+        log(f"  edited mask: {k} regions (scipy: {k}), largest {int(sizes.max())} voxels")
+
+    # 4. floodfill
+    allowed = (slc.matrix >= bone[0]) & (slc.matrix <= bone[1])
+    lab = timed("label (bone)", lambda ch: connected.label(allowed, 6, ch))
+    seeds = floodfill.seeds_to_mask(slc.matrix.shape, [(c, c, shell_x)], device=dev)
+    reached = timed("floodfill_threshold", lambda ch: floodfill.floodfill_threshold(
+        slc.matrix, seeds, bone[0], bone[1], checks=ch))
+    out["flood_shell"] = reached
+    if not torch.equal(reached, lab == lab[c, c, shell_x]):
+        raise AssertionError("floodfill_threshold differs from the shell's label component")
+    if oracle:
+        want = ndi.binary_dilation(_host(seeds), s6, iterations=-1, mask=_host(allowed))
+        if not np.array_equal(_host(reached), want):
+            raise AssertionError("floodfill_threshold differs from scipy's iterated dilation")
+        log(f"  floodfill_threshold: {int(reached.sum())} voxels, the shell's label "
+            "component and scipy's iterated dilation")
+    visible_before = int(mask.visible_array().sum())
+    part = timed("select_part", lambda ch: connected.select_part(mask.data, island, 6, ch))
+    mask.apply(floodfill.apply_fill(mask.data, part, const.MASK_ERASED))
+    out["removed"] = mask.data
+    drop = visible_before - int(mask.visible_array().sum())
+    if oracle and drop != island_size:
+        raise AssertionError(f"removing the island dropped {drop} voxels, not {island_size}")
+    soft = (c, c, c + round(0.25 * n))
+    out["dynamic"] = timed("region_grow_dynamic", lambda ch: floodfill.region_grow_dynamic(
+        slc.matrix, soft, 30.0, 30.0, checks=ch))
+    out["confidence"] = timed("region_grow_confidence",
+                              lambda ch: floodfill.region_grow_confidence(
+                                  slc.matrix, soft, 2.5, 3, checks=ch))
+    if not (out["dynamic"][soft] and out["confidence"][soft]):
+        raise AssertionError("a region grow from the soft-tissue seed is empty")
+    if oracle:
+        log(f"  island removed: visible count fell by {drop} (its size); region grow "
+            f"dynamic {int(out['dynamic'].sum())}, confidence "
+            f"{int(out['confidence'].sum())} voxels")
+
+    # 5. filters and the mask area
+    axes = [const.AXIAL, const.CORONAL, const.SAGITTAL]
+    for i, (ft, fname) in enumerate(sorted(const.FILTER_NAMES.items())):
+        for dim, orient in (("3D", const.AXIAL), ("2D", axes[i % 3])):
+            def run(ch, ft=ft, dim=dim, orient=orient):
+                slc.select_image_version("original")
+                slc.apply_image_filter(ft, 1.0, dim, orient)
+                return slc.matrix
+            name = f"{fname} {dim}" + (f" {orient}" if dim == "2D" else "")
+            img = timed(name, run)
+            if img.shape != slc.image_versions[0][1].shape or img.dtype != torch.int16:
+                raise AssertionError(f"{name}: {tuple(img.shape)} {img.dtype}")
+            out[name] = img
+    slc.select_image_version("original")
+    area = timed("calc_mask_area", lambda ch: slc.calc_mask_area(mask))
+    out["area"] = area
+    if oracle:
+        want = _exposed_area(_host(mask.visible_array()), slc.spacing)
+        if abs(area - want) > 1e-5 * want:
+            raise AssertionError(f"calc_mask_area {area!r}, exposed faces {want!r}")
+        log(f"  calc_mask_area {area!r} mm^2, exposed faces in float64 {want!r}")
+    return out
+
+
+def _compare_runs(got: dict, want: dict) -> int:
+    """Phase 10's card-against-CPU check: masks, labels and counts equal;
+    filtered int16 images within one grey level on at most 0.1% of voxels;
+    the area within a relative 1e-5.  Returns the largest image
+    difference."""
+    worst = 0
+    for k, w in want.items():
+        g = got[k]
+        if isinstance(w, float):
+            if abs(g - w) > 1e-5 * abs(w):
+                raise AssertionError(f"{k}: {g!r} against the CPU's {w!r}")
+        elif isinstance(w, tuple):
+            if g[1] != w[1] or not np.array_equal(g[0], w[0]):
+                raise AssertionError(f"{k}: the labels differ from the CPU's")
+        elif k.split()[0] in const.FILTER_NAMES.values():
+            d = np.abs(_host(g).astype(np.int64) - _host(w).astype(np.int64))
+            worst = max(worst, int(d.max()))
+            if d.max() > 1 or (d > 0).mean() > 1e-3:
+                raise AssertionError(f"{k}: differs from the CPU's by {int(d.max())}")
+        elif not np.array_equal(_host(g), _host(w)):
+            raise AssertionError(f"{k}: differs from the CPU's")
+    return worst
+
+
+def mask_editing(dev, n: int = MASK_EDIT_N, small: int = MASK_EDIT_SMALL) -> dict:
+    """Phase 10; returns the per-op record of the n^3 run."""
+    log(f"[10] the mask-editing path at {n}^3")
+    kernels.reset_launches()
+    rays.reset_launches()
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    got = edit_sequence(dev, small)
+    want = edit_sequence(cpu, small)
+    worst = _compare_runs(got, want)
+    log(f"  {small}^3 on {dev.type} and on the CPU ({time.perf_counter() - t0:.2f} s): "
+        f"{len(want)} results, masks, labels and counts equal; filtered images differ "
+        f"by at most {worst}")
+    del got, want
+    t0 = time.perf_counter()
+    log(f"  per op at {n}^3 (wall ms, device synchronised):")
+    ops = OpTimes(dev)
+    edit_sequence(dev, n, ops, oracle=True)
+    launches = {"sweeps": dict(kernels.LAUNCHES),
+                "rays": {k: dict(v) for k, v in rays.LAUNCHES.items()}}
+    log(f"  phase [10]: {time.perf_counter() - t0:.1f} s at {n}^3 with the host checks; "
+        f"kernel launches on this path: {launches} (no kernel lies on it)")
+    if any(kernels.LAUNCHES.values()) or any(
+            v for per_axis in rays.LAUNCHES.values() for v in per_axis.values()):
+        raise AssertionError(f"a hot-path kernel launched on the mask-editing path: {launches}")
+    return ops.stats
 
 
 if __name__ == "__main__":

@@ -1,8 +1,9 @@
 """Framework constants the port's paths need (the subset of
 invesalius3_tpu/constants.py that the port uses; values equal, as the tests
 check): orientations, projection ids, mask voxel codes, mask boolean ops,
-threshold presets, surface quality presets, the hole-filling cap, the
-.inv3 format version and the mask undo depth.
+image filter ids, brush shapes and editor ops, threshold presets, surface
+quality presets, the hole-filling cap, the .inv3 format version and the
+mask undo depth.
 """
 
 from __future__ import annotations
@@ -59,6 +60,31 @@ BOOLEAN_OP_NAMES = {
     BOOLEAN_AND: "Intersection",
     BOOLEAN_XOR: "XOR",
 }
+
+# Image filters producing selectable image versions (reference
+# data/filters.py, slice_.py __apply_image_filter)
+FILTER_GAUSSIAN = 0
+FILTER_MEDIAN = 1
+FILTER_MEAN = 2
+FILTER_SHARPEN = 3
+FILTER_DESPECKLE = 4
+FILTER_BORDER = 5
+FILTER_NAMES = {
+    FILTER_GAUSSIAN: "gaussian",
+    FILTER_MEDIAN: "median",
+    FILTER_MEAN: "mean",
+    FILTER_SHARPEN: "sharpen",
+    FILTER_DESPECKLE: "despeckle",
+    FILTER_BORDER: "sobel",
+}
+
+# Brush shapes and editor operations (reference styles.py EditorConfig)
+BRUSH_CIRCLE = "circle"
+BRUSH_SQUARE = "square"
+
+BRUSH_DRAW = 0
+BRUSH_ERASE = 1
+BRUSH_THRESHOLD = 2
 
 # CT threshold presets (Hounsfield; semantics of reference presets.py)
 THRESHOLD_PRESETS_CT = {

@@ -1,5 +1,5 @@
 """Mask domain object: uint8 label volume + edition history + serialization
-(port of invesalius3_tpu/core/mask.py, all but ``fill_holes_auto``).
+(port of invesalius3_tpu/core/mask.py).
 
 The mask is a borderless (Z, Y, X) uint8 tensor on the volume's device.
 The port never writes into a mask's tensor in place: every edit makes a
@@ -152,6 +152,13 @@ class Mask:
         self.history.clear()
 
     # -- ops ------------------------------------------------------------------
+    def fill_holes_auto(self, size: int, conn: int = 6) -> None:
+        """Fill the background components of at most ``size`` voxels with
+        254, undo-recorded (reference mask.py:519 fill_holes_auto)."""
+        from invesalius3_tpu_torch.ops.connected import fill_holes_automatically
+
+        self.apply(fill_holes_automatically(self.data, size, conn))
+
     def visible_array(self) -> torch.Tensor:
         return self.data >= const.MASK_VISIBLE_MIN
 

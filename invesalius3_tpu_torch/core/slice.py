@@ -9,9 +9,10 @@ only the RGB plane to the host.  The mask and colour overlays and the
 canvas drawing then run as the same numpy code as in the JAX package, so
 the bytes are identical.
 
-Surface creation runs on the mask's device (``core/surface.py``).  Not
-ported yet (they need modules the port does not have): ``calc_mask_area``,
-``apply_image_filter`` and ``apply_reorientation``.
+Surface creation runs on the mask's device (``core/surface.py``); the mask
+area and the image filters on the volume's (``ops/filters.py``).  Not
+ported yet (it needs modules the port does not have):
+``apply_reorientation``.
 """
 
 from __future__ import annotations
@@ -307,6 +308,25 @@ class Slice:
         return (float(sel.min()), float(sel.max()), float(sel.mean()),
                 float(sel.std(correction=0)))
 
+    def calc_mask_area(self, mask: Optional[Mask] = None) -> float:
+        """Exposed-surface area of the visible mask in mm^2: the exposed-face
+        kernel correlated at the mask's voxels (reference slice_.py:2298-2321
+        calc_mask_area, convolve_non_zero with cval=1: each mask voxel adds
+        a face's area per 6-neighbour outside the mask; the volume's border
+        counts as inside).  The kernel is float32, as in the JAX package."""
+        from invesalius3_tpu_torch.ops.filters import convolve_non_zero
+
+        mask = mask or self.current_mask
+        sx, sy, sz = self.spacing
+        kernel = np.zeros((3, 3, 3))
+        kernel[1, 1, 1] = 2 * sx * sy + 2 * sx * sz + 2 * sy * sz
+        kernel[0, 1, 1] = kernel[2, 1, 1] = -(sx * sy)
+        kernel[1, 0, 1] = kernel[1, 2, 1] = -(sx * sz)
+        kernel[1, 1, 0] = kernel[1, 1, 2] = -(sy * sz)
+        area = convolve_non_zero(mask.visible_array().to(torch.float32),
+                                 kernel.astype(np.float32), 1.0)
+        return float(area.sum(dtype=torch.float64))
+
     def do_boolean_op(self, op: int, index1: int, index2: int) -> Mask:
         """Combine two masks into a new one: union / diff / intersection /
         xor over the visible (>= 127) voxels, written as 0/255."""
@@ -389,6 +409,44 @@ class Slice:
             self._image_versions = [("original", self.volume.data)]
             self.current_image_label = "original"
         return self._image_versions
+
+    def apply_image_filter(self, filter_type: int, value: float = 1.0,
+                           dimension: str = "3D",
+                           orientation: str = const.AXIAL) -> str:
+        """Filter the current image into a new selectable version and switch
+        to it.  ``filter_type`` is a const.FILTER_* id; ``dimension="2D"``
+        filters each slice along ``orientation`` on its own (the JAX
+        package's vmap: the slices are the filter's batch axis)."""
+        from invesalius3_tpu_torch.ops import filters as F
+
+        fns = {
+            const.FILTER_GAUSSIAN: lambda v, b: F.gaussian(v, float(value), batch_dims=b),
+            const.FILTER_MEDIAN: lambda v, b: F.median(
+                v, max(3, min(int(2 * value + 1), 5)), batch_dims=b),
+            const.FILTER_MEAN: lambda v, b: F.mean(v, int(2 * value + 1), batch_dims=b),
+            const.FILTER_SHARPEN: lambda v, b: F.sharpen(v, float(value), batch_dims=b),
+            const.FILTER_DESPECKLE: lambda v, b: F.despeckle(v, float(value), batch_dims=b),
+            const.FILTER_BORDER: lambda v, b: F.border_detection(v, float(value),
+                                                                 batch_dims=b),
+        }
+        fn = fns[filter_type]
+        src = self.matrix
+        if dimension == "2D":
+            ax = const.ORIENTATION_AXIS[orientation]
+            out = torch.movedim(fn(torch.movedim(src, ax, 0), 1), 0, ax).contiguous()
+        else:
+            out = fn(src, 0)
+        versions = self.image_versions  # seeds the original first
+        n = sum(1 for lbl, _ in versions if lbl.startswith("Filtered"))
+        label = f"Filtered {n + 1}"
+        versions.append((label, out))
+        self.select_image_version(label)
+        self.bus.send_message(
+            "slice.image_filtered", label=label,
+            applied_filter=const.FILTER_NAMES[filter_type], value=value,
+            dimension=dimension, orientation=orientation,
+            derived=self.current_image_label)
+        return label
 
     def select_image_version(self, label: str) -> None:
         """Swap the active volume to a stored version; re-threshold the

@@ -262,3 +262,72 @@ def test_app_on_the_card_equals_cpu(cuda, tmp_path, monkeypatch):
     assert card.volume.data.device.type == "cuda"
     assert torch.equal(card.mask_dict[next(iter(card.mask_dict))].data.cpu(),
                        cpu.mask_dict[next(iter(cpu.mask_dict))].data)
+
+
+# the mask-editing tools on the card against the same calls on the CPU:
+# masks, labels and integer images equal; float images within 1e-5 of the
+# input's range (the filters round each product and sum alike on both)
+
+
+def _edit_inputs(n=40):
+    from invesalius3_tpu_torch.ops import threshold
+
+    ct = torch.from_numpy(pipeline.make_ct(n))
+    return ct, threshold.threshold_new_mask(ct, 226, 3071)
+
+
+def _edit_ops():
+    from invesalius3_tpu_torch.ops import connected, filters, floodfill, morphology
+
+    brush = morphology.brush_element(1.5, pipeline.SPACING)
+    c = 20
+    return {
+        "binary_closing": lambda ct, m: morphology.binary_closing(m, morphology.structure_3d(18)),
+        "paint_brush_trajectory": lambda ct, m: morphology.paint_brush_trajectory(
+            m, brush, [(0, 0, 0), (c, c, 36), (39, 39, 39)], 1, brush.shape),
+        "thresh_erase": lambda ct, m: morphology.paint_brush_trajectory_threshold(
+            m, ct, brush, [(c, c, 34), (c, c, 36)], 226, 3071, brush.shape, "thresh_erase"),
+        "floodfill_threshold": lambda ct, m: floodfill.floodfill_threshold(
+            ct, floodfill.seeds_to_mask(ct.shape, [(c, c, 36)], device=ct.device), 226, 3071),
+        "floodfill_auto_threshold": lambda ct, m: floodfill.floodfill_auto_threshold(
+            ct, floodfill.seeds_to_mask(ct.shape, [(c, c, 28)], device=ct.device), 0.8),
+        "region_grow_dynamic": lambda ct, m: floodfill.region_grow_dynamic(
+            ct, (c, c, 30), 30.0, 30.0, True, 400.0, 40.0),
+        "region_grow_confidence": lambda ct, m: floodfill.region_grow_confidence(ct, (c, c, 30)),
+        "label": lambda ct, m: connected.label(m, 26),
+        "largest_component": lambda ct, m: connected.largest_component(m > 0),
+        "fill_holes_automatically": lambda ct, m: connected.fill_holes_automatically(m, 500),
+        "select_part": lambda ct, m: connected.select_part(m, (c, c, c)),
+        "gaussian": lambda ct, m: filters.gaussian(ct.float(), 1.0),
+        "median": lambda ct, m: filters.median(ct, 3, batch_dims=1),
+        "mean": lambda ct, m: filters.mean(ct, 5),
+        "sharpen": lambda ct, m: filters.sharpen(ct, 1.0),
+        "border_detection": lambda ct, m: filters.border_detection(ct.float(), 1.0,
+                                                                   batch_dims=1),
+        "convolve_non_zero": lambda ct, m: filters.convolve_non_zero(
+            (m > 0).float(), np.arange(27, dtype=np.float32).reshape(3, 3, 3), 1.0),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_edit_ops()))
+def test_mask_editing_card_equals_cpu(cuda, name):
+    fn = _edit_ops()[name]
+    ct, m = _edit_inputs()
+    want = fn(ct, m)
+    got = fn(ct.to(cuda), m.to(cuda))
+    assert got.device.type == "cuda" and got.dtype == want.dtype
+    got = got.cpu()
+    if want.dtype.is_floating_point:
+        span = float(want.max() - want.min())
+        assert float((got - want).abs().max()) <= 1e-5 * max(span, 1.0)
+    else:
+        assert torch.equal(got, want)
+
+
+def test_count_regions_card_equals_cpu(cuda):
+    from invesalius3_tpu_torch.ops import connected
+
+    ct, m = _edit_inputs()
+    got, n = connected.count_regions(m.to(cuda) > 0, 6)
+    want, n_want = connected.count_regions(m > 0, 6)
+    assert n == n_want == 2 and np.array_equal(got, want)

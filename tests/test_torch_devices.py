@@ -19,7 +19,7 @@ from invesalius3_tpu_torch.core import surface
 from invesalius3_tpu_torch.core.mask import Mask
 from invesalius3_tpu_torch.core.project import Project
 from invesalius3_tpu_torch.core.volume import Volume
-from invesalius3_tpu_torch.ops import mesh
+from invesalius3_tpu_torch.ops import connected, filters, floodfill, mesh, morphology
 
 torch.set_num_threads(1)
 
@@ -37,6 +37,7 @@ ENTRY_POINTS = {
     "Project.from_matrix": Project.from_matrix,
     "Project.open": Project.open,
     "mesh.vertex_adjacency_fast": mesh.vertex_adjacency_fast,
+    "floodfill.seeds_to_mask": floodfill.seeds_to_mask,
     # entry points whose results are host arrays or files
     "app.main": app.main,
     "Surface.compute_properties": surface.Surface.compute_properties,
@@ -103,6 +104,8 @@ CALLS = {
     "Project.open": lambda tmp, **kw: Project.open(_inv3(tmp), **kw).volume.data,
     "mesh.vertex_adjacency_fast": lambda tmp, **kw: mesh.vertex_adjacency_fast(
         _cube()[1], 8, **kw)[0],
+    "floodfill.seeds_to_mask": lambda tmp, **kw: floodfill.seeds_to_mask(
+        (6, 7, 8), [(1, 2, 3)], **kw),
 }
 
 
@@ -202,3 +205,65 @@ def test_host_entry_points_raise_without_a_card(name, no_card, tmp_path, monkeyp
 
 def test_every_entry_point_is_called():
     assert sorted(ENTRY_POINTS) == sorted([*CALLS, *HOST_CALLS])
+
+
+# the mask-editing tools take their device from the tensors they are given;
+# run under a "meta" default device, any tensor they made without naming
+# the inputs' device would land there and fail the call
+def _edit_inputs():
+    ct = torch.from_numpy(_ct())
+    m = torch.from_numpy((_ct() > 200).astype(np.uint8) * 255)
+    return ct, m
+
+
+BRUSH = morphology.brush_element(1.0, (1.0, 1.0, 1.0))
+EDIT_OPS = {
+    "binary_dilation": lambda ct, m: morphology.binary_dilation(m, morphology.structure_3d(6)),
+    "binary_erosion": lambda ct, m: morphology.binary_erosion(m, morphology.structure_3d(18)),
+    "paint_brush": lambda ct, m: morphology.paint_brush(m, BRUSH, (2, 3, 4), 254),
+    "paint_brush_trajectory": lambda ct, m: morphology.paint_brush_trajectory(
+        m, BRUSH, [(0, 0, 0), (5, 6, 7)], 254, BRUSH.shape),
+    "paint_brush_trajectory_threshold": lambda ct, m: morphology.paint_brush_trajectory_threshold(
+        m, ct, BRUSH, [(3, 3, 3)], 0, 900, BRUSH.shape, "thresh"),
+    "floodfill_threshold": lambda ct, m: floodfill.floodfill_threshold(
+        ct, m > 0, 200, 2000),
+    "floodfill_auto_threshold": lambda ct, m: floodfill.floodfill_auto_threshold(
+        ct, m > 0, 0.3),
+    "region_grow_dynamic": lambda ct, m: floodfill.region_grow_dynamic(
+        ct, (3, 3, 3), 500.0, 500.0, True),
+    "region_grow_confidence": lambda ct, m: floodfill.region_grow_confidence(ct, (3, 3, 3)),
+    "apply_fill": lambda ct, m: floodfill.apply_fill(m, m > 0, 254),
+    "label": lambda ct, m: connected.label(m, 26),
+    "component_sizes": lambda ct, m: connected.component_sizes(connected.label(m)),
+    "largest_component": lambda ct, m: connected.largest_component(m),
+    "fill_holes_automatically": lambda ct, m: connected.fill_holes_automatically(m, 5),
+    "select_part": lambda ct, m: connected.select_part(m, (0, 0, 0)),
+    "gaussian": lambda ct, m: filters.gaussian(ct, 1.0, batch_dims=1),
+    "mean": lambda ct, m: filters.mean(ct, 3),
+    "median": lambda ct, m: filters.median(ct, 3),
+    "sharpen": lambda ct, m: filters.sharpen(ct, 1.0, batch_dims=1),
+    "border_detection": lambda ct, m: filters.border_detection(ct),
+    "convolve_non_zero": lambda ct, m: filters.convolve_non_zero(
+        m.float(), np.ones((3, 3, 3), np.float32), 1.0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(EDIT_OPS))
+def test_mask_editing_ops_stay_on_the_inputs_device(name, no_card):
+    ct, m = _edit_inputs()
+    with torch.device("meta"):
+        out = EDIT_OPS[name](ct, m)
+    assert out.device.type == "cpu"
+
+
+def test_mask_editing_host_results_come_from_the_inputs_device(no_card):
+    ct, m = _edit_inputs()
+    with torch.device("meta"):
+        labels, n = connected.count_regions(m)
+        slc = convert.slice_from_jax(SliceJax(VolumeJax.from_numpy(_ct())), device="cpu")
+        mask = slc.create_new_mask()
+        mask.fill_holes_auto(5)
+        area = slc.calc_mask_area()
+        slc.apply_image_filter(0, 1.0, "2D", "CORONAL")
+    assert isinstance(labels, np.ndarray) and n > 0 and area > 0
+    assert mask.data.device.type == slc.matrix.device.type == "cpu"
