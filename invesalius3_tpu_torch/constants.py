@@ -2,8 +2,8 @@
 invesalius3_tpu/constants.py that the port uses; values equal, as the tests
 check): orientations, projection ids, mask voxel codes, mask boolean ops,
 image filter ids, brush shapes and editor ops, threshold presets, surface
-quality presets, the hole-filling cap, the .inv3 format version and the
-mask undo depth.
+quality presets, the hole-filling cap, the .inv3 format version, the
+mask undo depth and the reslice interpolation ids.
 """
 
 from __future__ import annotations
@@ -130,3 +130,9 @@ INV3_FORMAT_VERSION = 1.1
 
 # Mask undo-history depth (reference mask.py:79)
 MASK_HISTORY_SIZE = 50
+
+# Reslice interpolation methods (reference constants.py; ops/reslice.py)
+INTERP_NEAREST = 0
+INTERP_TRILINEAR = 1
+INTERP_TRICUBIC = 2
+INTERP_LANCZOS = 3

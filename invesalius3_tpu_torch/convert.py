@@ -1,7 +1,7 @@
 """Numpy bridge: inputs onto a device, outputs back to the host, and the
 JAX package's state carried over into the port's: its device mesh, the
-slice viewer's volume, masks and ``Slice``, and the app's surfaces and
-project.
+slice viewer's volume, masks and ``Slice``, the app's surfaces and
+project, and the 3D viewer's raycasting presets.
 
 The system runs no model; its "weights" are its inputs and the state one
 stage hands the next.  This module moves that state across, so each port
@@ -205,4 +205,23 @@ def project_from_jax(p, device=DEFAULT_DEVICE):
     out.image_versions = [
         (lbl, out.volume.data if mat is data else to_device(mat, device))
         for lbl, mat in p.image_versions]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the 3D viewer's state: a JAX RaycastPreset as the port's
+# ---------------------------------------------------------------------------
+
+
+def preset_from_jax(p):
+    """The port's ``RaycastPreset`` with the fields of a JAX
+    ``ops.raycast.RaycastPreset`` (host data: no device)."""
+    import dataclasses
+
+    from invesalius3_tpu_torch.ops.raycast import RaycastPreset
+
+    out = RaycastPreset(**{f.name: getattr(p, f.name)
+                           for f in dataclasses.fields(RaycastPreset)})
+    out.rgba = np.array(out.rgba, np.float32)
+    out.background = tuple(out.background)
     return out

@@ -10,9 +10,9 @@ canvas drawing then run as the same numpy code as in the JAX package, so
 the bytes are identical.
 
 Surface creation runs on the mask's device (``core/surface.py``); the mask
-area and the image filters on the volume's (``ops/filters.py``).  Not
-ported yet (it needs modules the port does not have):
-``apply_reorientation``.
+area and the image filters on the volume's (``ops/filters.py``);
+``apply_reorientation`` resamples the volume and the edited masks there
+(``ops/reslice.py``).
 """
 
 from __future__ import annotations
@@ -494,6 +494,53 @@ class Slice:
                 for lbl, mat in self._image_versions]
         self._invalidate_masks(new_shape=self.matrix.shape)
         self.bus.send_message("slice.volume_axes_swapped", axes=(axis0, axis1))
+
+    def apply_reorientation(self, angles=None, q_orientation=None,
+                            interp_method: int = const.INTERP_TRICUBIC) -> None:
+        """Rotate the volume about its physical center and resample in
+        place (reference slice_.py:1969 apply_reorientation: M = T1 R^T T0
+        over (z, y, x) world coords, cval = matrix min).  ``angles`` are
+        the reorient dialog's (ax, ay, az) radians; edited masks are
+        resampled nearest-neighbor alongside (cval 0), others
+        re-thresholded from the new matrix.  Every mask's history is
+        cleared."""
+        from invesalius3_tpu_torch.ops import reslice, transforms
+
+        if q_orientation is None:
+            if angles is None:
+                raise ValueError("need angles or q_orientation")
+            ax, ay, az = angles
+            # the reorient dialog builds q = quaternion_from_euler(az, ay,
+            # ax) in Gohlke's default 'sxyz' convention (reference
+            # styles.py:2372)
+            q_orientation = transforms.quaternion_from_matrix(
+                transforms.euler_matrix(az, ay, ax, axes="sxyz"))
+        shape = tuple(int(s) for s in self.matrix.shape)
+        sx, sy, sz = self.spacing
+        cz, cy, cx = (sz * shape[0] / 2.0, sy * shape[1] / 2.0,
+                      sx * shape[2] / 2.0)
+        T0 = transforms.translation_matrix((-cz, -cy, -cx))
+        R = transforms.quaternion_matrix(np.asarray(q_orientation, float))
+        T1 = transforms.translation_matrix((cz, cy, cx))
+        M = (T1 @ R.T @ T0).astype(np.float32)
+        cval = float(self.matrix.min())
+        new = reslice.apply_view_matrix_transform(
+            self.matrix, self.spacing, M, 0, "AXIAL", interp_method, cval,
+            shape)
+        edited = {i: m.data for i, m in self.masks.items() if m.was_edited}
+        self.volume = self.volume.replace(data=new)
+        for i, m in self.masks.items():
+            if i in edited:  # carry manual edits through the same transform
+                md = reslice.apply_view_matrix_transform(
+                    edited[i], self.spacing, M, 0, "AXIAL",
+                    const.INTERP_NEAREST, 0.0, shape)
+                m.history.clear()
+                m.data = md
+            else:
+                tmin, tmax = m.threshold_range
+                m.history.clear()
+                m.data = thr_ops.threshold_new_mask(self.matrix, tmin, tmax)
+        self.bus.send_message("slice.reoriented", angles=tuple(angles or ()))
 
     def _invalidate_masks(self, new_shape=None) -> None:
         for m in self.masks.values():

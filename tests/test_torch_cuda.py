@@ -331,3 +331,120 @@ def test_count_regions_card_equals_cpu(cuda):
     got, n = connected.count_regions(m.to(cuda) > 0, 6)
     want, n_want = connected.count_regions(m > 0, 6)
     assert n == n_want == 2 and np.array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the 3D viewer's path: card against CPU (plain PyTorch on both)
+# ---------------------------------------------------------------------------
+
+
+def _frames_close(got, want):
+    d = np.abs(got.astype(np.int64) - want.astype(np.int64))
+    assert d.mean() <= 0.1 and (d > 2).mean() <= 1e-3, (d.mean(), (d > 2).mean())
+
+
+def _ints_close(got, want):
+    d = (got.long() - want.long()).abs()
+    assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-2
+
+
+@pytest.mark.parametrize("method", [0, 1, 2, 3])
+def test_reslice_card_equals_cpu(cuda, method):
+    from invesalius3_tpu_torch.ops import reslice, transforms
+
+    ct = torch.from_numpy(pipeline.make_ct(48))
+    c = np.array([12.0, 12.0, 12.0])
+    m = (transforms.translation_matrix(c) @ transforms.euler_matrix(0.3, -0.2, 0.35).T
+         @ transforms.translation_matrix(-c)).astype(np.float32)
+    args = ((0.5, 0.5, 0.5), m, 4, "CORONAL", method, -1000.0, (40, 48, 48))
+    want = reslice.apply_view_matrix_transform(ct, *args)
+    got = reslice.apply_view_matrix_transform(ct.to(cuda), *args)
+    assert got.device.type == "cuda" and got.dtype == want.dtype
+    if method == 0:
+        assert torch.equal(got.cpu(), want)
+    else:
+        _ints_close(got.cpu(), want)
+
+
+def test_apply_reorientation_card_equals_cpu(cuda):
+    ct = pipeline.make_ct(40)
+
+    def run(dev):
+        slc = Slice(Volume.from_numpy(ct, spacing=(0.5, 0.6, 0.7), device=dev))
+        m = slc.create_new_mask(threshold_range=(226, 3071))
+        d = m.data.clone()
+        d[10:20, 12:22, 14:24] = 254
+        m.apply(d)
+        soft = slc.create_new_mask(threshold_range=(-100, 200))
+        slc.apply_reorientation(angles=(0.2, -0.1, 0.35))
+        return slc.matrix.cpu(), m.data.cpu(), soft.data.cpu()
+
+    got, want = run(cuda), run("cpu")
+    _ints_close(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    assert float((got[2] != want[2]).float().mean()) <= 1e-2
+
+
+@pytest.mark.parametrize("name,ds", [("Bone", 1), ("Soft + Skin", 1), ("MIP", 1), ("Bone", 2)])
+def test_shear_warp_card_equals_cpu(cuda, name, ds):
+    from invesalius3_tpu_torch.ops import raycast
+
+    ct = torch.from_numpy(pipeline.make_ct(64))
+    p = raycast.builtin_preset(name)
+    for az, el in [(30, 20), (0, 89), (-90, 0)]:
+        want = raycast.shear_warp_render(ct, (0.5, 0.5, 0.5), p, az, el, 64, downsample=ds)
+        got = raycast.shear_warp_render(ct.to(cuda), (0.5, 0.5, 0.5), p, az, el, 64,
+                                        downsample=ds)
+        _frames_close(got, want)
+    raycast._VOLP_CACHE.clear()
+
+
+@pytest.mark.parametrize("name", ["Bone", "MIP"])
+def test_gather_raycast_card_equals_cpu(cuda, name):
+    from invesalius3_tpu_torch.ops import raycast
+
+    ct = torch.from_numpy(pipeline.make_ct(32))
+    p = raycast.builtin_preset(name)
+    plane = np.array([1.0, 0.2, 0.0, -16.0], np.float32)
+    want = raycast.render(ct, (0.5, 0.5, 0.5), p, 30, 20, 48, 64, crop_plane=plane)
+    got = raycast.render(ct.to(cuda), (0.5, 0.5, 0.5), p, 30, 20, 48, 64, crop_plane=plane)
+    _frames_close(got, want)
+
+
+def test_splat_renderer_card_equals_cpu(cuda):
+    from invesalius3_tpu_torch.ops import render_mesh
+
+    slc = Slice(Volume.from_numpy(pipeline.make_ct(40), spacing=(0.5, 0.5, 0.5),
+                                  device="cpu"))
+    s = slc.create_surface_from_mask(slc.create_new_mask(threshold_range=(226, 3071)))
+    meshes = [(s.vertices, s.faces, (0.9, 0.85, 0.75))]
+    for kw in ({}, {"ssao": True}):
+        want = render_mesh.render_surfaces(meshes, size=128, device="cpu", **kw)
+        got = render_mesh.render_surfaces(meshes, size=128, device=cuda, **kw)
+        assert (got != want).any(-1).mean() <= 5e-3
+    meshes = [meshes[0] + (0.5,)]
+    want = render_mesh.render_surfaces(meshes, size=128, device="cpu")
+    got = render_mesh.render_surfaces(meshes, size=128, device=cuda)
+    assert (got != want).any(-1).mean() <= 5e-3
+    k_cpu = render_mesh.remove_non_visible_faces(s.vertices, s.faces, size=128, device="cpu")
+    k_gpu = render_mesh.remove_non_visible_faces(s.vertices, s.faces, size=128, device=cuda)
+    assert abs(len(k_gpu[1]) - len(k_cpu[1])) <= 1e-3 * len(s.faces)
+
+
+@pytest.mark.parametrize("edit_mode", [0, 1])
+def test_mask_cut_card_equals_cpu(cuda, edit_mode):
+    import chip_smoke
+    from invesalius3_tpu_torch.ops import rasterize
+
+    ct = pipeline.make_ct(48)
+    mask = torch.from_numpy((ct >= 226).astype(np.uint8) * 255)
+    mproj, mv = chip_smoke._scene_matrices(ct.shape, (0.5, 0.5, 0.5), 30, 20, 96)
+    poly = [(10, 12), (80, 20), (60, 90), (5, 60)]
+    want_pm = rasterize.polygon2mask((96, 96), poly, device="cpu").t()
+    got_pm = rasterize.polygon2mask((96, 96), poly, device=cuda).t()
+    assert torch.equal(got_pm.cpu(), want_pm)
+    for depth in (1e9, 12.0):
+        want = rasterize.mask_cut(mask, (0.5, 0.5, 0.5), depth, want_pm, mproj, mv, edit_mode)
+        got = rasterize.mask_cut(mask.to(cuda), (0.5, 0.5, 0.5), depth, got_pm, mproj, mv,
+                                 edit_mode)
+        assert float((got.cpu() != want).float().mean()) <= 1e-4

@@ -19,7 +19,8 @@ from invesalius3_tpu_torch.core import surface
 from invesalius3_tpu_torch.core.mask import Mask
 from invesalius3_tpu_torch.core.project import Project
 from invesalius3_tpu_torch.core.volume import Volume
-from invesalius3_tpu_torch.ops import connected, filters, floodfill, mesh, morphology
+from invesalius3_tpu_torch.ops import (connected, filters, floodfill, mesh, morphology,
+                                       rasterize, raycast, render_mesh, reslice, resize)
 
 torch.set_num_threads(1)
 
@@ -50,6 +51,15 @@ ENTRY_POINTS = {
     "mesh.propagate_weights": mesh.propagate_weights,
     "mesh.laplacian_smooth": mesh.laplacian_smooth,
     "mesh.ca_smoothing": mesh.ca_smoothing,
+    # the 3D viewer's entry points that take host arrays
+    "rasterize.polygon2mask": rasterize.polygon2mask,
+    "raycast.render": raycast.render,
+    "raycast.shear_warp_render": raycast.shear_warp_render,
+    "raycast.render_mask_preview": raycast.render_mask_preview,
+    "raycast.warm_shear_cache": raycast.warm_shear_cache,
+    "render_mesh.render_surfaces": render_mesh.render_surfaces,
+    "render_mesh.render_scene": render_mesh.render_scene,
+    "render_mesh.remove_non_visible_faces": render_mesh.remove_non_visible_faces,
 }
 
 
@@ -106,6 +116,8 @@ CALLS = {
         _cube()[1], 8, **kw)[0],
     "floodfill.seeds_to_mask": lambda tmp, **kw: floodfill.seeds_to_mask(
         (6, 7, 8), [(1, 2, 3)], **kw),
+    "rasterize.polygon2mask": lambda tmp, **kw: rasterize.polygon2mask(
+        (6, 7), [(1, 1), (5, 1), (3, 6)], **kw),
 }
 
 
@@ -160,6 +172,18 @@ HOST_CALLS = {
         **kw),
     "mesh.laplacian_smooth": lambda tmp, **kw: mesh.laplacian_smooth(*_cube(), **kw),
     "mesh.ca_smoothing": lambda tmp, **kw: mesh.ca_smoothing(*_cube(), **kw),
+    "raycast.render": lambda tmp, **kw: raycast.render(_ct(), image_size=8, n_steps=8, **kw),
+    "raycast.shear_warp_render": lambda tmp, **kw: raycast.shear_warp_render(
+        _ct(), image_size=8, **kw),
+    "raycast.render_mask_preview": lambda tmp, **kw: raycast.render_mask_preview(
+        (_ct() > 200).astype(np.uint8) * 255, image_size=8, **kw),
+    "raycast.warm_shear_cache": lambda tmp, **kw: raycast.warm_shear_cache(_ct(), **kw),
+    "render_mesh.render_surfaces": lambda tmp, **kw: render_mesh.render_surfaces(
+        [(*_cube(), (1.0, 0.5, 0.2))], size=16, **kw),
+    "render_mesh.render_scene": lambda tmp, **kw: render_mesh.render_scene(
+        [_surface()], markers=[(0.5, 0.5, 0.5)], size=16, **kw),
+    "render_mesh.remove_non_visible_faces": lambda tmp, **kw:
+        render_mesh.remove_non_visible_faces(*_cube(), size=16, **kw),
 }
 
 
@@ -246,6 +270,39 @@ EDIT_OPS = {
     "convolve_non_zero": lambda ct, m: filters.convolve_non_zero(
         m.float(), np.ones((3, 3, 3), np.float32), 1.0),
 }
+
+
+_EYE = np.eye(4, dtype=np.float32)
+_PTS = torch.tensor([0.5, 2.0, 4.2])
+_POLY = torch.tensor([[1.0, 1.0], [5.0, 1.0], [3.0, 6.0]])
+_SCREEN = torch.ones(9, 9, dtype=torch.bool)
+_CORNERS = [torch.rand(3, 5, generator=torch.Generator().manual_seed(i)) * 8 for i in range(3)]
+_COLOURS = torch.rand(4, 5, generator=torch.Generator().manual_seed(3))
+EDIT_OPS.update({  # the 3D viewer's tensor ops
+    **{f"apply_view_matrix_transform[{k}]":
+       (lambda ct, m, k=k: reslice.apply_view_matrix_transform(
+           ct, (1.0, 1.0, 1.0), _EYE, 1, "CORONAL", k, -5.0, (4, 5, 6))) for k in range(4)},
+    "sample_volume": lambda ct, m: reslice.sample_volume(ct, _PTS, _PTS, _PTS, 2, 0.0),
+    "trilinear": lambda ct, m: reslice.trilinear(ct, _PTS, _PTS, _PTS),
+    "lanczos": lambda ct, m: reslice.lanczos(ct, _PTS, _PTS, _PTS),
+    "resize_volume[0]": lambda ct, m: resize.resize_volume(ct, (3, 9, 4), 0),
+    "resize_volume[1]": lambda ct, m: resize.resize_volume(ct, (3, 9, 4), 1),
+    "resize_by_spacing_scale": lambda ct, m: resize.resize_by_spacing_scale(ct, 2),
+    "raycast": lambda ct, m: raycast.raycast(
+        ct, np.full((4, 4, 3), 2.0, np.float32), np.float32([0.5, 0.5, 0.1]), 4.0,
+        raycast.builtin_preset("Bone").rgba, -200.0, 2000.0, n_steps=4, use_shading=True,
+        crop_plane=[1.0, 0.0, 0.0, -1.0]),
+    "shear_warp_render": lambda ct, m: raycast.shear_warp_render(
+        ct, image_size=8, fetch=False),
+    "shear_warp_render[mip, ds2]": lambda ct, m: raycast.shear_warp_render(
+        ct, preset=raycast.builtin_preset("MIP"), image_size=8, downsample=2, fetch=False),
+    "_pool2": lambda ct, m: raycast._pool2(ct, "mip"),
+    "polygon2mask": lambda ct, m: rasterize.polygon2mask((6, 7), _POLY),
+    "mask_cut": lambda ct, m: rasterize.mask_cut(
+        m, (1.0, 1.0, 1.0), 100.0, _SCREEN, np.eye(4) * 0.1, np.eye(4), 0),
+    "_splat": lambda ct, m: render_mesh._splat(*_CORNERS, _COLOURS[0], _COLOURS, 8,
+                                               ssao=True),
+})
 
 
 @pytest.mark.parametrize("name", sorted(EDIT_OPS))

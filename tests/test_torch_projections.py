@@ -53,9 +53,10 @@ def _mida_close(got, want, dtype):
 
 def test_constants_equal_the_jax_package():
     names = [n for n in dir(const) if n[0].isupper()]
-    assert len(names) == 46
+    assert len(names) == 50
     for n in ("BRUSH_CIRCLE", "BRUSH_SQUARE", "BRUSH_DRAW", "BRUSH_ERASE",
-              "BRUSH_THRESHOLD", "FILTER_GAUSSIAN", "FILTER_BORDER", "FILTER_NAMES"):
+              "BRUSH_THRESHOLD", "FILTER_GAUSSIAN", "FILTER_BORDER", "FILTER_NAMES",
+              "INTERP_NEAREST", "INTERP_TRILINEAR", "INTERP_TRICUBIC", "INTERP_LANCZOS"):
         assert n in names, n
     for n in names:
         assert getattr(const, n) == getattr(const_jax, n), n
