@@ -104,6 +104,32 @@ Phases, each fatal on failure (no phase catches an error):
    reslice method and the mask cut).  The same sequence first runs at
    64^3 on the card and on the CPU within the CPU tests' bounds.  No
    kernel lies on this path (the counts must stay 0).
+12. drives the deep-learning segmentation family (``models_phase``): writes
+   every checkpoint at the published widths into a temporary models dir
+   under the reference key names (``Unet3D`` 8 features for brain, trachea
+   and mandible from seeded generators, the mandible as a TorchScript
+   archive; the three FastSurfer views, 64 filters, as ONNX; the
+   cranioplasty ``Unet2D`` as a TorchScript archive whose weights make its
+   mask the bone mask's 3x3 majority vote, ``majority_implant_state``) and
+   resolves each through the port's models dir, downloads refused; runs
+   every segmenter on the card and on the CPU at small sizes (brain and
+   trachea 64^3, mandible 100x96x96, the implant binary and gray on a
+   4-slice 512^2 slab, FastSurfer at conform 64) within the CPU tests'
+   bounds (FastSurfer's chaotic random net by the 99th percentile of its
+   sums and 99% of its decided labels); times cuDNN's NCDHW against
+   channels-last a batch; then at full width, twice each (first, warm),
+   with peak memory, patches a second, TFLOP/s and the share of the bf16
+   peak: ``BrainSegmenter`` on a 256^3 MRI phantom (1000 patches; batch 4
+   against batch 8; one run under ``torch.profiler``), ``TracheaSegmenter``
+   on ``make_ct(512)`` (9261 patches), ``MandibleSegmenter`` on its first
+   256 slices (500 patches of 96^3), each with eight patches run alone
+   against the volume on the voxels they write last;
+   ``app.main(["--cranioplasty", ct.nii, implant.stl])`` on ``make_ct(512)``
+   (2048 patches of 480^2), its STL equal to the surface of the majority
+   vote; ``SubpartSegmenter`` at conform 256 on a 256^3 phantom with
+   ``run_quick_qc`` and ``structure_masks``, and the three-view sum at 27
+   voxels rebuilt bit for bit from its slices.  No kernel lies on this
+   path (the counts must stay 0).
 
 It prints the card's name and power limit first, a JSON line of the
 kernels before the last line, and as the last line
@@ -127,16 +153,21 @@ import torch
 
 from invesalius3_tpu_torch import _build, app, pipeline
 from invesalius3_tpu_torch import constants as const
+from invesalius3_tpu_torch.core.mask import Mask
 from invesalius3_tpu_torch.core.project import Project
 from invesalius3_tpu_torch.core.slice import Slice
 from invesalius3_tpu_torch.core.volume import Volume
 from invesalius3_tpu_torch.io import mesh_io, nifti
-from invesalius3_tpu_torch.core.surface import Surface
+from invesalius3_tpu_torch.core.surface import Surface, create_surface_from_mask
+from invesalius3_tpu_torch.models import fastsurfer, onnx_convert, segment, unet2d, unet3d
+from invesalius3_tpu_torch.models import layers as mlayers
+from invesalius3_tpu_torch.net import download
 from invesalius3_tpu_torch.ops import (connected, floodfill, kernels, mesh, morphology,
                                        rasterize, raycast, render_mesh, reslice, resize,
                                        transforms, watershed)
 from invesalius3_tpu_torch.ops import projection_kernels as rays
 from invesalius3_tpu_torch.ops import threshold as thr_ops
+from invesalius3_tpu_torch.utils import paths
 
 import time_rays as time_rays_lib
 
@@ -353,6 +384,9 @@ def main() -> int:
     mask_editing(dev)
     torch.cuda.empty_cache()
     viewer_3d(dev)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_models_") as d:
+        models_phase(dev, Path(d))
 
     entries = [
         {"name": f"watershed_sweep[axis={axis}]", "route": "cuda",
@@ -1626,6 +1660,537 @@ def viewer_3d(dev, n: int = VIEWER_N, small: int = VIEWER_SMALL, surf_n: int = V
             v for per_axis in rays.LAUNCHES.values() for v in per_axis.values()):
         raise AssertionError(f"a hot-path kernel launched on the 3D viewer's path: {launches}")
     return ops.stats
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the deep-learning segmentation family
+# ---------------------------------------------------------------------------
+
+MODELS_CT_N = 512  # the CT side of phase 12: trachea, mandible (half), implant
+MODELS_MRI_N = 256  # its MRI side: brain, FastSurfer at conform 256
+BF16_DENSE_TFLOPS = 989.0  # an H100 SXM's dense bf16 tensor-core rate (data sheet, 700 W)
+MODEL_ATOL = 2e-2  # the CPU tests' bound on bfloat16 probabilities
+# FastSurfer at 64 filters with random weights is chaotic: a 2x2 pooling
+# index flips between near-tied bfloat16 values when the convolutions sum
+# in another order, and moves the sums near it.  On the CPU alone, summing
+# the convolutions in float64 in place of oneDNN's order moved the sums of
+# a 64^3 run by up to 7.6% of the largest |sum| (99% of them within 0.44%)
+# and changed 0.23% of the labels whose top two differ by more than 0.2%.
+# So the card is held to the CPU by the 99th percentile of the sums'
+# difference (1% of the largest |sum|) and by the labels on those voxels
+# (99% equal).
+FS_MARGIN, FS_Q99, FS_SAME = 2e-3, 1e-2, 0.99
+
+
+def unet3d_flops(p: int, f: int = 8) -> int:
+    """Operations (2 a multiply-add) of one p^3 patch through ``Unet3D(f)``:
+    the 5^3 convolutions of the nine blocks, the k=4 s=2 up-convolutions
+    (4^3 multiply-adds an input voxel and channel pair) and the 1x1 head."""
+    n, ops, cin = p ** 3, 0, 1
+    for c in (f, 2 * f, 4 * f, 8 * f):
+        ops += 2 * 125 * n * (cin * c + c * c)
+        cin, n = c, n // 8
+    ops += 2 * 125 * n * (cin * 16 * f + (16 * f) ** 2)
+    cin = 16 * f
+    for c in (8 * f, 4 * f, 2 * f, f):
+        ops += 2 * 64 * n * cin * c
+        n *= 8
+        ops += 2 * 125 * n * (2 * c * c + c * c)
+        cin = c
+    return ops + 2 * n * f
+
+
+def unet2d_flops(p: int, f: int = 16) -> int:
+    """Operations of one p^2 patch through ``Unet2D(f)``."""
+    n = p * p
+    return (2 * 9 * n * f + 2 * 9 * (n // 4) * f * 2 * f + 2 * 9 * (n // 16) * 2 * f * 4 * f
+            + 2 * 4 * (n // 16) * 4 * f * 2 * f + 2 * 9 * (n // 4) * 4 * f * 2 * f
+            + 2 * 4 * (n // 4) * 2 * f * f + 2 * 9 * n * 2 * f * f + 2 * n * f)
+
+
+def fastsurfer_flops(h: int, w: int, classes: int, f: int = 64) -> int:
+    """Operations of one h x w slice through ``FastSurferCNN(classes, f)``:
+    three 3x3 convolutions a block (enc1's first from 7 channels), nine
+    blocks at halving sizes, the 1x1 classifier."""
+    n = h * w
+    ops = 2 * 9 * n * (fastsurfer.THICK * f + 2 * f * f)
+    ops += sum(2 * 9 * (n >> (2 * lv)) * 3 * f * f for lv in (1, 2, 3, 4))
+    ops += sum(2 * 9 * (n >> (2 * lv)) * 3 * f * f for lv in (0, 1, 2, 3))
+    return ops + 2 * n * f * classes
+
+
+def random_state(module: torch.nn.Module, seed: int) -> dict:
+    """Seeded weights for ``module`` at its width: ``layers.init_state``'s
+    draw, then each batch norm's scale, bias and running statistics drawn
+    too, so the norms do work."""
+    g = torch.Generator().manual_seed(seed)
+    state = mlayers.init_state(module, g)
+    for name, m in module.named_modules():
+        if isinstance(m, mlayers.BatchNorm):
+            n = m.num_features
+            state[f"{name}.weight"] = 0.7 + 0.6 * torch.rand(n, generator=g)
+            state[f"{name}.bias"] = 0.1 * torch.randn(n, generator=g)
+            state[f"{name}.running_mean"] = 0.2 * torch.randn(n, generator=g)
+            state[f"{name}.running_var"] = 0.5 + torch.rand(n, generator=g)
+    return state
+
+
+def majority_implant_state(f: int = 16) -> dict:
+    """``Unet2D(features=f)`` weights under which the network's mask is the
+    3x3 majority vote of its binary input: enc1 passes the bone mask on
+    channel 0, dec1 sums it over 3x3 minus 4.5, the head adds -0.25, every
+    other weight is 0.  Every value is exact in bfloat16, so no rounding
+    order can move a voxel across the threshold (probabilities 0.438 or at
+    least 0.562).  (A random 2D U-Net's mask of a CT is speckle whose
+    surface would hold some 10^8 triangles.)"""
+    state = {k: torch.zeros_like(v) for k, v in unet2d.Unet2D(features=f).state_dict().items()
+             if not k.endswith("num_batches_tracked")}
+    for b in ("enc1", "enc2", "enc3", "dec2", "dec1"):
+        state[f"{b}_norm.weight"] = torch.ones(state[f"{b}_norm.weight"].shape)
+        state[f"{b}_norm.running_var"] = torch.ones(state[f"{b}_norm.running_var"].shape)
+    state["enc1_conv.weight"][0, 0, 1, 1] = 1.0
+    state["dec1_conv.weight"][0, f] = 1.0  # e1's channel 0, after u1's f channels
+    state["dec1_conv.bias"][0] = -4.5
+    state["conv.weight"][0, 0] = 1.0
+    state["conv.bias"][0] = -0.25
+    return state
+
+
+def majority_vote(ct: torch.Tensor) -> torch.Tensor:
+    """The uint8 0/255 mask of ``majority_implant_state``'s network on a CT:
+    at least 5 of the 3x3 in-plane neighbours >= 300 HU (zero outside)."""
+    bone = torch.nn.functional.pad((ct >= 300).to(torch.uint8), (1, 1, 1, 1))
+    Y, X = ct.shape[1:]
+    votes = sum(bone[:, dy:dy + Y, dx:dx + X] for dy in range(3) for dx in range(3))
+    return (votes >= 5).to(torch.uint8) * 255
+
+
+def _fastsurfer_views() -> dict:
+    n_sag = len(fastsurfer.get_labels_from_lut()[1])
+    return {"fastsurfer_axial": 79, "fastsurfer_coronal": 79, "fastsurfer_sagittal": n_sag}
+
+
+def write_checkpoints(root: Path) -> dict:
+    """Every phase-12 checkpoint under ``root`` (the models dir) at the
+    published widths, under the reference key names: brain and trachea as
+    eager state dicts, mandible and cranioplasty as TorchScript archives (as
+    published), the FastSurfer views as ONNX initializer graphs.  Returns
+    {registry name: the state written}."""
+    made = {"brain_mri_t1": random_state(unet3d.Unet3D(), 1),
+            "trachea_ct": random_state(unet3d.Unet3D(), 2),
+            "mandible_jit_ct": random_state(unet3d.Unet3D(), 3),
+            "cranioplasty_jit_ct_binary": majority_implant_state()}
+    for i, (name, classes) in enumerate(_fastsurfer_views().items()):
+        made[name] = random_state(fastsurfer.FastSurferCNN(num_classes=classes), 4 + i)
+    for name, state in made.items():
+        path = root / name / download.WEIGHT_REGISTRY[name]["filename"]
+        path.parent.mkdir(parents=True, exist_ok=True)
+        if name.startswith("fastsurfer"):
+            onnx_convert.write_onnx(path, {k: v.numpy() for k, v in state.items()})
+        elif "_jit_" in name:
+            net = unet3d.Unet3D() if name.startswith("mandible") else unet2d.Unet2D()
+            net.load_state_dict(state)
+            example = torch.zeros((1, 1) + (16,) * (3 if name.startswith("mandible") else 2))
+            torch.jit.save(torch.jit.trace(net.eval(), example), str(path))
+        else:
+            torch.save(state, path)
+    return made
+
+
+def _no_download(url, *a, **kw):
+    raise OSError(f"phase 12 reads its checkpoints from disk; no download of {url}")
+
+
+def _same_state(name: str, got: dict, want: dict) -> None:
+    if sorted(got) != sorted(want) or not all(
+            np.array_equal(np.asarray(got[k]), want[k].numpy()) for k in want):
+        raise AssertionError(f"{name}: the resolved weights differ from those written")
+
+
+def _mri(n: int) -> np.ndarray:
+    """A synthetic int16 T1 head of side n: a bright ellipsoidal brain with
+    darker ventricles inside a dim skull, noise from seed 0."""
+    c = (np.arange(n, dtype=np.float32) - n / 2.0) / (n / 2.0)
+    zz, yy, xx = c[:, None, None], c[None, :, None], c[None, None, :]
+    r = np.sqrt(zz ** 2 + (yy / 0.85) ** 2 + (xx / 0.75) ** 2)
+    vol = np.where(r < 0.9, 300.0, 20.0) + np.where(r < 0.75, 500.0, 0.0)
+    vol -= np.where((np.abs(xx) < 0.12) & (np.abs(yy) < 0.3) & (np.abs(zz) < 0.2), 450.0, 0.0)
+    rng = np.random.default_rng(0)
+    return (vol + rng.normal(0.0, 25.0, vol.shape)).astype(np.int16)
+
+
+def _prob_checks(name: str, prob: np.ndarray, mask: np.ndarray, shape) -> None:
+    """The JAX package's result types, probabilities in [0, 1], the mask
+    their threshold at 0.5."""
+    if prob.shape != tuple(shape) or prob.dtype != np.float32 or mask.dtype != np.uint8 \
+            or mask.shape != prob.shape:
+        raise AssertionError(f"{name}: {prob.shape} {prob.dtype}, {mask.shape} {mask.dtype}")
+    if not np.isfinite(prob).all() or prob.min() < 0.0 or prob.max() > 1.0:
+        raise AssertionError(f"{name}: probabilities outside [0, 1]")
+    if not np.array_equal(mask, np.where(prob >= 0.5, 255, 0).astype(np.uint8)):
+        raise AssertionError(f"{name}: the mask is not prob >= 0.5")
+
+
+def _agree(name: str, got, want) -> str:
+    """Card against CPU within the CPU tests' bounds: probabilities within
+    MODEL_ATOL, masks equal where both lie farther than it from the
+    threshold, 0.5."""
+    (p, m), (pw, mw) = got, want
+    err = float(np.abs(p - pw).max())
+    far = (np.abs(p - 0.5) > MODEL_ATOL) & (np.abs(pw - 0.5) > MODEL_ATOL)
+    if err > MODEL_ATOL or not np.array_equal(m[far], mw[far]):
+        raise AssertionError(f"{name}: card against CPU: max |dp| {err}, masks differ on "
+                             f"{int((m[far] != mw[far]).sum())} voxels")
+    return f"{name}: max |dp| {err:.2e}, masks equal on {far.mean():.1%} of voxels"
+
+
+def _owned(starts, p: int, start: int, n: int) -> np.ndarray:
+    """Along one axis, which positions of the patch at ``start`` it writes
+    last (no later start covers them), cut to the axis length n."""
+    pos = start + np.arange(min(p, n - start))
+    own = np.ones(len(pos), bool)
+    for s in starts[starts.index(start) + 1:]:
+        own &= ~((pos >= s) & (pos < s + p))
+    return own
+
+
+def _axis_starts(n: int, p: int, overlap: float = 0.5):
+    return sorted({o[0] for o in segment.patch_grid((n, p, p), p, overlap)})
+
+
+def patch_oracle(name: str, seg, image: np.ndarray, prob: np.ndarray) -> float:
+    """Eight patches of a 3D segmenter's grid (the first, the last, a
+    clamped border patch, five drawn from seed 0) each run alone through the
+    model: they must match the assembled volume within MODEL_ATOL on the
+    voxels each writes last.  Returns the largest difference."""
+    p = seg.patch_size
+    norm = seg.normalized(image)
+    shape = tuple(norm.shape)
+    origins = segment.patch_grid(shape, p, seg.overlap)
+    starts = [_axis_starts(n, p, seg.overlap) for n in shape]
+    # a patch whose x start was clamped to end at the border
+    clamped = next((i for i, o in enumerate(origins)
+                    if o[2] == starts[2][-1] and o[2] % (p - int(p * seg.overlap))),
+                   len(origins) - 1)
+    rng = np.random.default_rng(0)
+    picks = [0, len(origins) - 1, clamped] + list(rng.choice(len(origins), min(5, len(origins)), replace=False))
+    worst = 0.0
+    for i in picks:
+        o = origins[i]
+        alone = seg.apply(segment.gather_patches(
+            norm, torch.tensor([o], device=norm.device), p))[0].cpu().numpy()
+        own = [_owned(starts[a], p, o[a], image.shape[a]) for a in range(3)]
+        sel = np.ix_(*own)
+        region = prob[tuple(slice(o[a], o[a] + p) for a in range(3))]
+        if region[sel].size:
+            worst = max(worst, float(np.abs(alone[:region.shape[0], :region.shape[1],
+                                                  :region.shape[2]][sel] - region[sel]).max()))
+    if worst > MODEL_ATOL:
+        raise AssertionError(f"{name}: a patch alone differs from the volume by {worst}")
+    return worst
+
+
+class ModelTimes:
+    """Phase 12's record per call: wall seconds first and warm (device
+    synchronised), peak device memory, items (patches or slices) a second,
+    achieved TFLOP/s and the share of the dense bf16 peak."""
+
+    def __init__(self, dev):
+        self.dev = dev
+        self.rows = {}
+
+    def __call__(self, name: str, fn, items: int, flops: int):
+        times = []
+        for _ in range(2):
+            _sync(self.dev)
+            if self.dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = fn()
+            _sync(self.dev)
+            times.append(time.perf_counter() - t0)
+        peak = (torch.cuda.max_memory_allocated() / 2**30 if self.dev.type == "cuda"
+                else None)
+        warm = times[-1]
+        tflops = flops / warm / 1e12
+        self.rows[name] = {"first_s": times[0], "warm_s": warm, "peak_gib": peak,
+                           "items": items, "items_per_s": items / warm, "tflop": flops / 1e12,
+                           "tflops": tflops, "bf16_share": tflops / BF16_DENSE_TFLOPS}
+        log(f"    {name}: first {times[0]:.3f} s, warm {warm:.3f} s; peak "
+            + (f"{peak:.2f} GiB" if peak is not None else "n/a")
+            + f"; {items} items, {items / warm:.1f}/s; {flops / 1e12:.2f} TFLOP, "
+            f"{tflops:.2f} TFLOP/s, {tflops / BF16_DENSE_TFLOPS:.2%} of the bf16 peak")
+        return out
+
+
+def memory_formats(dev, made: dict) -> dict:
+    """Each network's batch of 8 at its path's size, NCDHW/NCHW against
+    channels-last, ms a batch (5 batches between CUDA events, after 2)."""
+    cases = [("Unet3D 48^3", unet3d.Unet3D(dtype=torch.bfloat16), made["brain_mri_t1"],
+              (8, 1, 48, 48, 48), torch.channels_last_3d),
+             ("Unet3D 96^3", unet3d.Unet3D(dtype=torch.bfloat16), made["mandible_jit_ct"],
+              (8, 1, 96, 96, 96), torch.channels_last_3d),
+             ("Unet2D 480^2", unet2d.Unet2D(), made["cranioplasty_jit_ct_binary"],
+              (8, 1, 480, 480), torch.channels_last),
+             ("FastSurferCNN 256^2", fastsurfer.FastSurferCNN(), made["fastsurfer_axial"],
+              (8, 7, 256, 256), torch.channels_last)]
+    out = {}
+    for name, net, state, shape, last in cases:
+        x = torch.rand(shape, generator=torch.Generator().manual_seed(0)).to(dev)
+        for fmt in (torch.contiguous_format, last):
+            model = mlayers.load(net, state, dev, fmt)
+            xf = x.contiguous(memory_format=fmt)
+            with torch.inference_mode():
+                for _ in range(2):
+                    model(xf)
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True)
+                start.record()
+                for _ in range(5):
+                    model(xf)
+                end.record()
+                torch.cuda.synchronize()
+            out[(name, "channels_last" if fmt is last else "contiguous")] = \
+                start.elapsed_time(end) / 5
+        log(f"    {name} x8: contiguous {out[(name, 'contiguous')]:.2f} ms, channels-last "
+            f"{out[(name, 'channels_last')]:.2f} ms a batch")
+    return out
+
+
+def _fs_slice_check(pipe, vol: torch.Tensor, agg: torch.Tensor, picks) -> float:
+    """The sum at the voxels picks^3 from its slices: each view's slices at
+    ``picks`` through its network in the batch the pipeline ran them in,
+    weighted and added in the pipeline's order, must give the sum bit for
+    bit; each slice run alone must match its batched logits (99th
+    percentile within FS_Q99 of their largest).  Returns that percentile."""
+    logits, worst = {}, 0.0
+    bs = pipe.batch_size
+    for view, axis in pipe.VIEWS:
+        batch = fastsurfer.thick_slices(vol, axis)
+        w = torch.tensor(pipe.VIEW_WEIGHTS[view], device=vol.device)
+        logits[view] = []
+        for i in picks:
+            b0 = i // bs * bs
+            batched = pipe.plane_logits(batch[b0:b0 + bs], view)[i - b0]
+            alone = pipe.plane_logits(batch[i:i + 1], view)[0]
+            d = ((alone - batched).abs() / batched.abs().max()).flatten()
+            worst = max(worst, float(torch.quantile(d[::max(1, d.numel() // 2**24)], 0.99)))
+            logits[view].append(batched * w)
+    for a, z in enumerate(picks):
+        for b, y in enumerate(picks):
+            for c, x in enumerate(picks):
+                want = (logits["axial"][a][y, x] + logits["coronal"][b][z, x]) \
+                    + logits["sagittal"][c][z, y]
+                if not torch.equal(agg[z, y, x], want):
+                    raise AssertionError(f"FastSurfer: the sum at {(z, y, x)} is not its "
+                                         "slices' weighted logits")
+    if worst > FS_Q99:
+        raise AssertionError(f"FastSurfer: slices alone differ from their batches by {worst}")
+    return worst
+
+
+def models_phase(dev, tmp: Path, ct_n: int = MODELS_CT_N, mri_n: int = MODELS_MRI_N) -> dict:
+    """Phase 12; returns the per-call record of the full-width runs."""
+    import os
+
+    log(f"[12] the deep-learning segmentation family: CT {ct_n}^3, MRI {mri_n}^3")
+    if dev.type == "cuda":
+        log("  card: " + subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60).stdout.strip())
+    os.environ["XDG_CONFIG_HOME"] = str(tmp / "config")  # models dir and the app's session
+    download.download_url_to_file = _no_download
+    kernels.reset_launches()
+    rays.reset_launches()
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+
+    t0 = time.perf_counter()
+    made = write_checkpoints(paths.models_dir())
+    for name, state in made.items():
+        if name.startswith("fastsurfer"):
+            continue
+        loader = unet2d.load_torch_checkpoint if name.startswith("cranio") else None
+        _same_state(name, segment._resolve_weights(name, False, loader), state)
+    sub = segment.SubpartSegmenter(device=dev, conform_size=mri_n)  # the three views
+    for view, name in zip(("axial", "coronal", "sagittal"), _fastsurfer_views()):
+        _same_state(name, sub.variables[view], made[name])
+    log(f"  checkpoints written and resolved through the models dir "
+        f"({time.perf_counter() - t0:.2f} s): {sorted(made)}")
+
+    ct = pipeline.make_ct(ct_n)
+    mri = _mri(mri_n)
+    # the card against the CPU at small sizes
+    t0 = time.perf_counter()
+    runs = {"brain 64^3": (segment.BrainSegmenter, {}, _mri(64)),
+            "trachea 64^3": (segment.TracheaSegmenter, {}, pipeline.make_ct(64)),
+            "mandible 100x96x96": (segment.MandibleSegmenter, {},
+                                   pipeline.make_ct(100)[:, 2:98, 2:98]),
+            "implant binary 4x512^2": (segment.ImplantSegmenter,
+                                       {"variables": random_state(unet2d.Unet2D(), 7)},
+                                       ct[ct_n // 2 - 2: ct_n // 2 + 2]),
+            "implant gray 4x512^2": (segment.ImplantSegmenter,
+                                     {"variables": random_state(unet2d.Unet2D(), 7),
+                                      "method": "gray"}, ct[ct_n // 2 - 2: ct_n // 2 + 2])}
+    for name, (cls, kw, img) in runs.items():
+        seg = cls(device=dev, **kw)
+        got = seg.segment(img)
+        want = cls(device=cpu, **kw).segment(img)
+        _prob_checks(name, *got, img.shape)
+        log("  " + _agree(name, got, want))
+        if cls is segment.ImplantSegmenter:
+            log(f"    eight patches alone: within {implant_oracle(seg, img, got[0]):.2e} "
+                "of the volume")
+    small_mri = _mri(64)
+    sums = []
+    for d in (dev, cpu):
+        sp = segment.SubpartSegmenter(device=d, conform_size=64)
+        labels, mask = sp.segment(small_mri)
+        pipe = fastsurfer.FastSurferPipeline(variables=sp.variables, device=d)
+        vol = fastsurfer.conform_tensor(torch.from_numpy(small_mri).to(d), 64)
+        sums.append((labels, mask, pipe.aggregate(vol).cpu().numpy()))
+    (lg, mg, ag), (lw, mw, aw) = sums
+    top2 = np.sort(aw, -1)[..., -2:]
+    decided = top2[..., 1] - top2[..., 0] > FS_MARGIN * np.abs(aw).max()
+    d = np.abs(ag - aw) / np.abs(aw).max()
+    q99, same = float(np.quantile(d, 0.99)), float((lg[decided] == lw[decided]).mean())
+    if q99 > FS_Q99 or same < FS_SAME or not np.array_equal(mg, np.where(lg > 0, 255, 0)):
+        raise AssertionError(f"subpart 64^3: card against CPU: sums q99 {q99:.2e}, labels "
+                             f"equal on {same:.2%} of the decided voxels")
+    log(f"  subpart 64^3 (conform 64): sums within {q99:.2e} of the largest at the 99th "
+        f"percentile (max {float(d.max()):.2e}); labels equal on {same:.2%} of the "
+        f"{decided.mean():.1%} of voxels whose top two differ by more than {FS_MARGIN:.1%}")
+    log(f"  card against CPU: {time.perf_counter() - t0:.1f} s")
+
+    if dev.type == "cuda":
+        log("  memory formats (cuDNN's choice):")
+        memory_formats(dev, made)
+
+    log(f"  per call at full width (wall s, device synchronised; first, warm):")
+    times = ModelTimes(dev)
+    brain = segment.BrainSegmenter(device=dev)
+    n_brain = len(segment.patch_grid(mri.shape, brain.patch_size))
+    prob, mask = times(f"BrainSegmenter {mri_n}^3", lambda: brain.segment(mri), n_brain,
+                       n_brain * unet3d_flops(brain.patch_size))
+    _prob_checks("brain", prob, mask, mri.shape)
+    prob4 = brain.segment(mri, batch_size=4)[0]
+    d4 = float(np.abs(prob4 - prob).max())
+    if d4 > MODEL_ATOL:
+        raise AssertionError(f"brain: batch 4 against batch 8: {d4}")
+    log(f"    batch 4 against batch 8: max |dp| {d4:.2e}; eight patches alone: within "
+        f"{patch_oracle('brain', brain, mri, prob):.2e} of the volume")
+    profile_segmenter(dev, brain, mri)
+    del prob, prob4, mask
+
+    for name, seg, img in (
+            (f"TracheaSegmenter {ct_n}^3", segment.TracheaSegmenter(device=dev), ct),
+            (f"MandibleSegmenter {ct_n // 2}x{ct_n}^2", segment.MandibleSegmenter(device=dev),
+             ct[: ct_n // 2])):
+        n = len(segment.patch_grid(img.shape, seg.patch_size))
+        prob, mask = times(name, lambda: seg.segment(img), n,
+                           n * unet3d_flops(seg.patch_size))
+        _prob_checks(name, prob, mask, img.shape)
+        log(f"    eight patches alone: within {patch_oracle(name, seg, img, prob):.2e} "
+            "of the volume")
+        del prob, mask
+
+    ct_path = tmp / "ct.nii"
+    nifti.write_nifti(ct_path, ct, spacing=pipeline.SPACING)
+    stl = tmp / "implant.stl"
+    argv = ["--cranioplasty", str(ct_path), str(stl)]
+    n_imp = ct_n * len(segment.patch_grid((1, max(ct_n, 480), max(ct_n, 480)), 480))
+    times(f"app --cranioplasty {ct_n}^3", lambda: app.main(argv, device=dev), n_imp,
+          n_imp * unet2d_flops(480))
+    m = Mask()
+    m.data = majority_vote(torch.from_numpy(ct).to(dev))
+    want = create_surface_from_mask(m, pipeline.SPACING, name="implant")
+    if stl.read_bytes()[84:] != mesh_io.stl_records(want.vertices, want.faces).tobytes():
+        raise AssertionError("--cranioplasty: the STL is not the majority vote's surface")
+    log(f"    the STL read back is the surface of the bone mask's 3x3 majority vote "
+        f"({len(want.faces)} triangles)")
+    del m, want
+
+    n_fs = 3 * mri_n
+    flops = mri_n * (2 * fastsurfer_flops(mri_n, mri_n, 79)
+                     + fastsurfer_flops(mri_n, mri_n, _fastsurfer_views()["fastsurfer_sagittal"]))
+    labels, mask = times(f"SubpartSegmenter {mri_n}^3 (conform {mri_n})",
+                         lambda: sub.segment(mri), n_fs, flops)
+    if labels.shape != mri.shape or labels.dtype != np.int32 or mask.dtype != np.uint8 \
+            or not np.array_equal(mask, np.where(labels > 0, 255, 0)) \
+            or not set(np.unique(labels)) <= set(fastsurfer.class_ids().tolist()):
+        raise AssertionError("subpart: labels, ids or mask wrong")
+    t0 = time.perf_counter()
+    qc = fastsurfer.run_quick_qc(labels, 1.0, device=dev)
+    if qc["total_volume_liters"] != float((labels > 0).sum()) / 1e6:
+        raise AssertionError(f"quick QC: {qc}")
+    parts = segment.structure_masks(labels, ["cortical", "subcortical", "ventricles"])
+    for _, pm, lid in parts:
+        if not np.array_equal(pm, np.where(labels == lid, 255, 0)):
+            raise AssertionError(f"structure_masks: label {lid}")
+    log(f"    run_quick_qc and structure_masks: {time.perf_counter() - t0:.2f} s; "
+        f"{qc['total_volume_liters']:.3f} l segmented, {len(parts)} structures")
+    pipe = fastsurfer.FastSurferPipeline(variables=sub.variables, device=dev)
+    vol = fastsurfer.conform_tensor(torch.from_numpy(mri).to(dev), mri_n)
+    agg = pipe.aggregate(vol)
+    worst = _fs_slice_check(pipe, vol, agg, [0, mri_n // 2 - 1, mri_n - 1])
+    log(f"    the sum at 27 voxels rebuilt from three slices a view: bit for bit; each "
+        f"slice alone within {worst:.2e} of its batch's largest logit (99th percentile)")
+    del agg, vol, pipe
+
+    launches = {"sweeps": dict(kernels.LAUNCHES),
+                "rays": {k: dict(v) for k, v in rays.LAUNCHES.items()}}
+    log(f"  phase [12]: {time.perf_counter() - t_phase:.1f} s; kernel launches on this "
+        f"path: {launches} (no kernel lies on it)")
+    if any(kernels.LAUNCHES.values()) or any(
+            v for per_axis in rays.LAUNCHES.values() for v in per_axis.values()):
+        raise AssertionError(f"a hot-path kernel launched on the models' path: {launches}")
+    return times.rows
+
+
+def implant_oracle(seg, image: np.ndarray, prob: np.ndarray) -> float:
+    """Eight 2D patches of the implant grid (first, last, a clamped one,
+    five drawn) run alone must match the volume on the pixels each writes
+    last; returns the largest difference."""
+    p = seg.patch_size
+    data = seg.slices(image)
+    Z, Yp, Xp = data.shape
+    origins = [(z, gy, gx) for z in range(Z)
+               for (_, gy, gx) in segment.patch_grid((1, Yp, Xp), p, seg.overlap)]
+    starts = [_axis_starts(n, p, seg.overlap) for n in (Yp, Xp)]
+    rng = np.random.default_rng(0)
+    picks = [0, len(origins) - 1, 1] + list(rng.choice(len(origins), min(5, len(origins)), replace=False))
+    worst = 0.0
+    for i in picks:
+        z, gy, gx = origins[i]
+        alone = seg.apply(data[z:z + 1, gy:gy + p, gx:gx + p])[0].cpu().numpy()
+        own = [_owned(starts[0], p, gy, image.shape[1]), _owned(starts[1], p, gx, image.shape[2])]
+        region = prob[z, gy:gy + p, gx:gx + p]
+        sel = np.ix_(*own)
+        worst = max(worst, float(np.abs(alone[:region.shape[0], :region.shape[1]][sel]
+                                        - region[sel]).max()))
+    if worst > MODEL_ATOL:
+        raise AssertionError(f"implant: a patch alone differs from the volume by {worst}")
+    return worst
+
+
+def profile_segmenter(dev, seg, image) -> None:
+    """One warm segmentation under torch.profiler: the device's kernel and
+    copy time, its idle share of the wall time, and the largest kernels."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        seg.segment(image)
+        wall = time.perf_counter() - t0
+    rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_time_total > 0 and not e.key.startswith(("aten::", "cuda"))
+            and "Activity Buffer" not in e.key]
+    busy = sum(ms for _, ms, _ in rows) / 1e3
+    log(f"    profiled BrainSegmenter run: wall {wall:.4f} s, device kernel and copy time "
+        f"{busy:.4f} s, idle share {1 - busy / wall:.1%}")
+    for name, ms, count in sorted(rows, key=lambda r: -r[1])[:10]:
+        log(f"      {ms:9.3f} ms {count:6d}x  {name[:90]}")
 
 
 if __name__ == "__main__":

@@ -19,10 +19,15 @@ The batch flags of the reference's command line (reference app.py:391-518):
   --algorithm          surface algorithm: Default | ca_smoothing | Binary
   --debug              print every bus event
 
+  --cranioplasty IN OUT  cranioplasty implant: the NIfTI IN through the
+                       implant U-Net (binary method), its mask's surface
+                       exported to OUT; needs the cranioplasty_jit_ct_binary
+                       checkpoint under the models dir
+
 DICOM (-i, --import-all), bitmap stacks (--import-folder; --spacing is
-read only there), PAR/REC, --serve, --shell, --remote-host, --use-pedal
-and --cranioplasty need modules the port does not have yet: each exits
-with a message naming the missing module.
+read only there), PAR/REC, --serve, --shell, --remote-host and --use-pedal
+need modules the port does not have yet: each exits with a message naming
+the missing module.
 """
 
 from __future__ import annotations
@@ -48,7 +53,6 @@ _NOT_PORTED = {
     "shell": "--shell needs the port's ops namespace (app.run_shell)",
     "remote_host": "--remote-host needs net/remote_control.py",
     "use_pedal": "--use-pedal needs net/pedal_connection.py",
-    "cranioplasty": "--cranioplasty needs models/segment.py",
 }
 
 
@@ -159,6 +163,8 @@ def main(argv=None, device=DEFAULT_DEVICE) -> int:
     try:
         from invesalius3_tpu_torch.core.surface import import_surface_file
 
+        if args.cranioplasty:
+            return run_cranioplasty(*args.cranioplasty, device=device)
         if args.import_surface and not args.other_file:
             # standalone mesh flow: import (+hole-fill), report, re-export
             surf = import_surface_file(args.import_surface, device=device)
@@ -245,6 +251,29 @@ def main(argv=None, device=DEFAULT_DEVICE) -> int:
         return 0
     finally:
         session.exit()
+
+
+def run_cranioplasty(input_path, output_path, device=DEFAULT_DEVICE) -> int:
+    """Headless cranioplasty implant flow (reference segment.py:30
+    run_cranioplasty_implant + app.py --cranioplasty) on ``device``."""
+    import torch
+
+    from invesalius3_tpu_torch.core.mask import Mask
+    from invesalius3_tpu_torch.core.surface import create_surface_from_mask
+    from invesalius3_tpu_torch.io.nifti import read_nifti
+    from invesalius3_tpu_torch.models.segment import ImplantSegmenter
+
+    device = resolve_device(device)
+    img = read_nifti(input_path)
+    seg = ImplantSegmenter(method="binary", device=device)
+    prob, mask_arr = seg.segment(img.data)
+    m = Mask()
+    m.data = torch.from_numpy(mask_arr).to(device)
+    surf = create_surface_from_mask(m, img.spacing, name="implant")
+    surf.export(output_path)
+    print(tr("implant exported to {path}: {tris} triangles").format(
+        path=output_path, tris=len(surf.faces)), file=sys.stderr)
+    return 0
 
 
 if __name__ == "__main__":

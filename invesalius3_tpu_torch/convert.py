@@ -3,12 +3,14 @@ JAX package's state carried over into the port's: its device mesh, the
 slice viewer's volume, masks and ``Slice``, the app's surfaces and
 project, and the 3D viewer's raycasting presets.
 
-The system runs no model; its "weights" are its inputs and the state one
-stage hands the next.  This module moves that state across, so each port
-stage can be fed the JAX stage's exact input.  It never imports jax: it
+Most of the system runs no model; there its "weights" are its inputs and
+the state one stage hands the next.  This module moves that state across,
+so each port stage can be fed the JAX stage's exact input, and carries the
+segmentation models' Flax variables over as the port's state dicts.  It never imports jax: it
 reads JAX objects through their attributes, and anything array-like goes
 through ``np.asarray``.  Every bridge puts its tensors on the card unless
-the caller passes ``device="cpu"``.
+the caller passes ``device="cpu"``; the weight carriers return host tensors,
+as a checkpoint read from disk is.
 """
 
 from __future__ import annotations
@@ -225,3 +227,89 @@ def preset_from_jax(p):
     out.rgba = np.array(out.rgba, np.float32)
     out.background = tuple(out.background)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the segmentation models' weights: Flax {params, batch_stats} as the
+# port's state dicts, each the exact inverse of the JAX package's
+# convert_torch_state_dict
+# ---------------------------------------------------------------------------
+
+
+def _t(a, axes=None) -> torch.Tensor:
+    a = np.asarray(a)
+    return torch.tensor(a if axes is None else a.transpose(axes)).contiguous()
+
+
+def _conv(state, name, p, axes) -> None:
+    """A Flax conv's kernel (axes moved to torch's order) and bias."""
+    state[f"{name}.weight"] = _t(p["kernel"], axes)
+    if "bias" in p:
+        state[f"{name}.bias"] = _t(p["bias"])
+
+
+def _norm(state, name, p, stats) -> None:
+    """A Flax batch norm's scale, bias, mean and var under torch's names."""
+    state[f"{name}.weight"] = _t(p["scale"])
+    state[f"{name}.bias"] = _t(p["bias"])
+    state[f"{name}.running_mean"] = _t(stats["mean"])
+    state[f"{name}.running_var"] = _t(stats["var"])
+
+
+_UNET3D_ALIAS = {"encoder1": "enc1", "encoder2": "enc2", "encoder3": "enc3",
+                 "encoder4": "enc4", "bottleneck": "bottleneck", "decoder1": "dec4",
+                 "decoder2": "dec4", "decoder3": "dec4", "decoder4": "dec4"}
+
+
+def unet3d_from_jax(variables) -> dict:
+    """The port's ``Unet3D`` state dict (the reference torch names, the
+    decoders' inner layers ``dec4_*``) of the JAX ``Unet3D``'s variables.
+    Flax kernels (kd, kh, kw, in, out) become Conv3d (out, in, kd, kh, kw);
+    ``transpose_kernel`` ConvTranspose kernels (kd, kh, kw, out, in) become
+    ConvTranspose3d (in, out, kd, kh, kw)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    axes = (4, 3, 0, 1, 2)
+    state = {}
+    for block, alias in _UNET3D_ALIAS.items():
+        for i in (1, 2):
+            _conv(state, f"{block}.{alias}_conv{i}", params[block][f"conv{i}"], axes)
+            _norm(state, f"{block}.{alias}_norm{i}", params[block][f"norm{i}"],
+                  stats[block][f"norm{i}"])
+    for name in ("upconv4", "upconv3", "upconv2", "upconv1", "conv"):
+        _conv(state, name, params[name], axes)
+    return state
+
+
+def unet2d_from_jax(variables) -> dict:
+    """The port's ``Unet2D`` state dict of the JAX ``Unet2D``'s variables:
+    kernels (kh, kw, in, out) -> (out, in, kh, kw), transpose kernels
+    (kh, kw, out, in) -> (in, out, kh, kw)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    state = {}
+    for b in ("enc1", "enc2", "enc3", "dec2", "dec1"):
+        _conv(state, f"{b}_conv", params[f"{b}_conv"], (3, 2, 0, 1))
+        _norm(state, f"{b}_norm", params[f"{b}_norm"], stats[f"{b}_norm"])
+    for name in ("upconv2", "upconv1", "conv"):
+        _conv(state, name, params[name], (3, 2, 0, 1))
+    return state
+
+
+def fastsurfer_from_jax(variables) -> dict:
+    """The port's ``FastSurferCNN`` state dict of the JAX model's variables:
+    ``<block>.conv{i}`` (bias-free), ``<block>.bn{i}``, ``<block>.prelu{i}``
+    (a slope of shape (1,)) and ``classifier``."""
+    params, stats = variables["params"], variables["batch_stats"]
+    state = {}
+    _conv(state, "classifier", params["classifier"], (3, 2, 0, 1))
+    for block, layers in params.items():
+        if block == "classifier":
+            continue
+        for layer, p in layers.items():
+            name = f"{block}.{layer}"
+            if layer.startswith("conv"):
+                _conv(state, name, p, (3, 2, 0, 1))
+            elif layer.startswith("prelu"):
+                state[f"{name}.weight"] = _t(p["negative_slope"]).reshape(1)
+            else:
+                _norm(state, name, p, stats[block][layer])
+    return state

@@ -1,0 +1,123 @@
+"""The layers of the JAX package's Flax models, with Flax's cast points.
+
+The Flax models compute convolutions in ``dtype`` (bfloat16 in the
+segmenters) with float32 parameters, and everything else in float32:
+
+- ``nn.Conv`` / ``nn.ConvTranspose`` cast input and kernel to ``dtype``,
+  convolve to a ``dtype`` result, then add the bias cast to ``dtype`` (two
+  roundings in bfloat16; cuDNN's fused bias would round once);
+- ``nn.BatchNorm(dtype=float32)`` promotes its input and returns float32:
+  ``(x - mean) * (rsqrt(var + eps) * scale) + bias``;
+- a layer without a dtype (the 1x1 heads) runs in float32.
+
+``torch.autocast`` casts at other points, so the modules call ``conv`` with
+the dtype Flax uses.  Parameters stay float32 and are cast at use.  On the
+card, float32 convolutions run with TF32 off inside ``fp32_convs``, as the
+JAX reference computes them in float32.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+from typing import Dict
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+_CONV_FNS = {
+    nn.Conv2d: F.conv2d, nn.Conv3d: F.conv3d,
+    nn.ConvTranspose2d: F.conv_transpose2d, nn.ConvTranspose3d: F.conv_transpose3d,
+}
+
+
+def conv(layer: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``layer`` (a torch Conv / ConvTranspose holding the weights) applied
+    as the Flax layer with ``dtype`` applies it: input and kernel in
+    ``dtype``, a ``dtype`` result, then the ``dtype`` bias added."""
+    y = _CONV_FNS[type(layer)](x.to(dtype), layer.weight.to(dtype), None,
+                               stride=layer.stride, padding=layer.padding)
+    if layer.bias is not None:
+        y = y + layer.bias.to(dtype).view((1, -1) + (1,) * (y.dim() - 2))
+    return y
+
+
+class BatchNorm(nn.modules.batchnorm._BatchNorm):
+    """Eval-mode batch norm as Flax's ``nn.BatchNorm(dtype=float32)``
+    computes it.  Its keys are torch's (``weight``, ``bias``,
+    ``running_mean``, ``running_var``, ``num_batches_tracked``), and a state
+    dict without ``num_batches_tracked`` loads strictly, as into
+    ``nn.BatchNorm*d``."""
+
+    def _check_input_dim(self, x: torch.Tensor) -> None:
+        pass
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return ((x.to(torch.float32) - self.running_mean.view(shape)) * mul.view(shape)
+                + self.bias.view(shape))
+
+
+class PReLU(nn.PReLU):
+    """Flax's ``nn.PReLU``: ``where(x >= 0, x, slope * x)``, the slope in
+    the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(x >= 0, x, self.weight.to(x.dtype) * x)
+
+
+@contextlib.contextmanager
+def fp32_convs(device: torch.device):
+    """cuDNN's float32 convolutions in full float32 (not TF32) inside the
+    block, on the card; the previous setting comes back after it."""
+    if device.type != "cuda":
+        yield
+        return
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def init_state(module: nn.Module, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    """A random state dict for ``module`` from ``generator`` (host float32),
+    drawn as Flax's initialisers draw: kernels normal with variance
+    1 / fan_in, biases 0, batch norms the identity (scale 1, bias 0, mean 0,
+    var 1), PReLU slopes 0.25.  For tests and smoke runs only: an untrained
+    network's output is noise."""
+    state = {}
+    for name, m in module.named_modules():
+        p = f"{name}." if name else ""
+        if isinstance(m, tuple(_CONV_FNS)):
+            fan_in = m.in_channels * math.prod(m.kernel_size)
+            state[p + "weight"] = torch.randn(
+                m.weight.shape, generator=generator) / math.sqrt(fan_in)
+            if m.bias is not None:
+                state[p + "bias"] = torch.zeros(m.bias.shape)
+        elif isinstance(m, BatchNorm):
+            n = m.num_features
+            state.update({p + "weight": torch.ones(n), p + "bias": torch.zeros(n),
+                          p + "running_mean": torch.zeros(n),
+                          p + "running_var": torch.ones(n)})
+        elif isinstance(m, nn.PReLU):
+            state[p + "weight"] = torch.full((m.num_parameters,), 0.25)
+    return state
+
+
+def as_state(variables) -> Dict[str, torch.Tensor]:
+    """A state dict of host tensors from one of numpy arrays or tensors."""
+    return {k: v.detach().cpu() if isinstance(v, torch.Tensor)
+            else torch.from_numpy(np.array(v)) for k, v in variables.items()}
+
+
+def load(module: nn.Module, variables, device: torch.device,
+         memory_format: torch.memory_format = torch.contiguous_format) -> nn.Module:
+    """``module`` with ``variables`` loaded strictly, in eval mode, on
+    ``device``, its weights in ``memory_format``."""
+    module.load_state_dict(as_state(variables), strict=True)
+    return module.eval().to(device).to(memory_format=memory_format)

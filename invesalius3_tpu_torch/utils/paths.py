@@ -1,6 +1,6 @@
 """Filesystem locations (the part of invesalius3_tpu/utils/paths.py the
-port's session, translations and raycasting presets use; reference
-invesalius/inv_paths.py).  The port keeps its own user directory, apart
+port's session, translations, raycasting presets and model weights use;
+reference invesalius/inv_paths.py).  The port keeps its own user directory, apart
 from the JAX package's."""
 
 from __future__ import annotations
@@ -16,3 +16,8 @@ def user_dir() -> Path:
 
 def user_presets_dir() -> Path:
     return user_dir() / "presets"
+
+
+def models_dir() -> Path:
+    """DL weight storage (reference inv_paths.MODELS_DIR 'ai/')."""
+    return user_dir() / "ai"

@@ -217,7 +217,6 @@ def test_reopen_saved_project(tmp_path, monkeypatch, ct_file):
     (["--shell"], "run_shell"),
     (["--remote-host", "localhost:5000"], "net/remote_control.py"),
     (["--use-pedal"], "net/pedal_connection.py"),
-    (["--cranioplasty", "in.nii", "out.stl"], "models/segment.py"),
 ])
 def test_flags_still_to_port_exit_naming_the_module(tmp_path, monkeypatch, argv, module):
     monkeypatch.setenv("XDG_CONFIG_HOME", str(tmp_path))

@@ -19,6 +19,7 @@ from invesalius3_tpu_torch.core import surface
 from invesalius3_tpu_torch.core.mask import Mask
 from invesalius3_tpu_torch.core.project import Project
 from invesalius3_tpu_torch.core.volume import Volume
+from invesalius3_tpu_torch.models import fastsurfer, layers, segment, unet2d, unet3d
 from invesalius3_tpu_torch.ops import (connected, filters, floodfill, mesh, morphology,
                                        rasterize, raycast, render_mesh, reslice, resize)
 
@@ -60,6 +61,14 @@ ENTRY_POINTS = {
     "render_mesh.render_surfaces": render_mesh.render_surfaces,
     "render_mesh.render_scene": render_mesh.render_scene,
     "render_mesh.remove_non_visible_faces": render_mesh.remove_non_visible_faces,
+    # the segmentation models' entry points (host arrays in and out)
+    "segment.BrainSegmenter": segment.BrainSegmenter.__init__,
+    "segment.ImplantSegmenter": segment.ImplantSegmenter.__init__,
+    "segment.SubpartSegmenter": segment.SubpartSegmenter.__init__,
+    "fastsurfer.FastSurferPipeline": fastsurfer.FastSurferPipeline.__init__,
+    "fastsurfer.conform": fastsurfer.conform,
+    "fastsurfer.run_quick_qc": fastsurfer.run_quick_qc,
+    "app.run_cranioplasty": app.run_cranioplasty,
 }
 
 
@@ -153,8 +162,36 @@ def _app(tmp, **kw):
                      "-e", str(tmp / "o.stl")], **kw)
 
 
+def _gen():
+    return torch.Generator().manual_seed(0)
+
+
+def _cranioplasty(tmp, **kw):
+    from invesalius3_tpu.io import nifti
+
+    nifti.write_nifti(tmp / "ct.nii", _ct())
+    d = tmp / "invesalius3_tpu_torch" / "ai" / "cranioplasty_jit_ct_binary"
+    d.mkdir(parents=True, exist_ok=True)
+    torch.save(layers.init_state(unet2d.Unet2D(), _gen()), d / "cranioplasty_jit_ct_binary.pt")
+    return app.run_cranioplasty(tmp / "ct.nii", tmp / "implant.stl", **kw)
+
+
 # entry points with host results: a call with the given device keyword
 HOST_CALLS = {
+    "segment.BrainSegmenter": lambda tmp, **kw: segment.BrainSegmenter(
+        unet3d.init_params(_gen(), init_features=2), unet3d.Unet3D(init_features=2),
+        patch_size=16, **kw).segment(_ct()),
+    "segment.ImplantSegmenter": lambda tmp, **kw: segment.ImplantSegmenter(
+        layers.init_state(unet2d.Unet2D(features=2), _gen()), unet2d.Unet2D(features=2), patch_size=8,
+        **kw).segment(_ct()),
+    "segment.SubpartSegmenter": lambda tmp, **kw: segment.SubpartSegmenter(
+        {}, filters=2, conform_size=16, **kw).segment(_ct()),
+    "fastsurfer.FastSurferPipeline": lambda tmp, **kw: fastsurfer.FastSurferPipeline(
+        filters=2, **kw).run(_ct(), conform_size=16),
+    "fastsurfer.conform": lambda tmp, **kw: fastsurfer.conform(_ct(), 6, **kw),
+    "fastsurfer.run_quick_qc": lambda tmp, **kw: fastsurfer.run_quick_qc(
+        np.where(_ct() > 0, 4, 0), 1.0, **kw),
+    "app.run_cranioplasty": _cranioplasty,
     "app.main": _app,
     "Surface.compute_properties": lambda tmp, **kw: _surface().compute_properties(**kw),
     "surface.import_surface_file": lambda tmp, **kw: surface.import_surface_file(
@@ -302,6 +339,21 @@ EDIT_OPS.update({  # the 3D viewer's tensor ops
         m, (1.0, 1.0, 1.0), 100.0, _SCREEN, np.eye(4) * 0.1, np.eye(4), 0),
     "_splat": lambda ct, m: render_mesh._splat(*_CORNERS, _COLOURS[0], _COLOURS, 8,
                                                ssao=True),
+})
+
+
+_LOGITS = torch.rand(2, 3, 4, len(fastsurfer.get_labels_from_lut()[1]))
+_ORIGINS = torch.tensor([[0, 1, 2], [2, 3, 4]])
+EDIT_OPS.update({  # the segmentation models' tensor ops
+    "image_normalize": lambda ct, m: segment.image_normalize(ct),
+    "gather_patches": lambda ct, m: segment.gather_patches(ct, _ORIGINS, 4),
+    "thick_slices": lambda ct, m: fastsurfer.thick_slices(ct, 1),
+    "conform_tensor": lambda ct, m: fastsurfer.conform_tensor(ct, 5),
+    "max_pool_with_indices": lambda ct, m: fastsurfer.max_pool_with_indices(
+        ct[None, :, :6, :8].float())[1],
+    "max_unpool": lambda ct, m: fastsurfer.max_unpool(
+        *fastsurfer.max_pool_with_indices(ct[None, :, :6, :8].float())),
+    "apply_sagittal_mapping": lambda ct, m: fastsurfer.apply_sagittal_mapping(_LOGITS),
 })
 
 

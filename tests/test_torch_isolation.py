@@ -1,6 +1,6 @@
-"""The port stands alone: no module of ``invesalius3_tpu_torch`` and neither
-``chip_smoke.py`` nor ``time_rays.py`` imports ``jax`` or the JAX package
-``invesalius3_tpu``,
+"""The port stands alone: no module of ``invesalius3_tpu_torch`` and none of
+``chip_smoke.py``, ``time_rays.py`` and ``time_viewer.py`` imports ``jax`` or
+the JAX package ``invesalius3_tpu``,
 and every native source the port builds lies inside the port's package."""
 
 import ast
@@ -13,7 +13,8 @@ from invesalius3_tpu_torch import _build
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "invesalius3_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "invesalius3_tpu"}
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "time_rays.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "time_rays.py",
+                                         ROOT / "time_viewer.py"]
 
 
 def _imported_top_names(path: Path):
