@@ -6,8 +6,8 @@
 Phases, each fatal on failure (no phase catches an error):
 
 1. builds the CUDA sweep kernel, the CUDA ray kernels (LMIP, MIDA), the
-   STL packer and the QEM decimator from the repository's sources, all
-   compilers at once;
+   STL packer, the QEM decimator and the DICOM codecs (lossless JPEG and
+   PackBits) from the repository's sources, all compilers at once;
 2. holds the sweep kernel against its plain PyTorch version, bit for bit,
    for axes 0, 1, 2 with int16 and int32 labels, on 64^3 and the edge
    shapes of ``kernels.SWEEP_CHECK_SHAPES`` (an even and an odd x, rays
@@ -130,6 +130,28 @@ Phases, each fatal on failure (no phase catches an error):
    ``run_quick_qc`` and ``structure_masks``, and the three-view sum at 27
    voxels rebuilt bit for bit from its slices.  No kernel lies on this
    path (the counts must stay 0).
+13. drives the study importers (``study_importers``): ``make_ct(512)`` as
+   512 DICOM files of 512^2 (explicit VR LE, HU + 1024 rescaled by -1024,
+   patient, study and series UIDs, positions along the normal, names
+   shuffled) beside a second, 128-slice series; times ``load_dicom_dir``,
+   the pixel reads, the rescale and ``group_to_volume`` with its H2D
+   (pageable, and a pinned copy for comparison), the volume equal to
+   ``make_ct(512)`` bit for bit with its spacing and affine; ``app -i -t
+   Bone -e --algorithm ca_smoothing``, its STL bytes equal to the same flow
+   from a NIfTI of the array; ``--import-all``, two STLs named by the
+   series UIDs; the series written with a 15 degree gantry tilt through
+   ``group_to_volume``, ``fix_gantry_tilt`` at 512^3 on the card against
+   the CPU (equal on at least 99.9% of voxels, within one grey level), both
+   timed, with the peak device memory; RLE and lossless JPEG series of 32
+   slices decoded by the native library (equal to the written pixels and,
+   every fourth slice, to the plain Python decoders), JPEG-LS lossless and
+   near-lossless, 12-bit JPEG, baseline JPEG and JPEG 2000 on two slices
+   each (lossless equal, lossy within the JAX tests' bounds), ms a slice;
+   ``pillow: <version|absent>``: with Pillow, ``--import-folder --spacing``
+   on 512 16-bit TIFF slices (STL equal to the NIfTI flow's), without it
+   the Pillow paths must raise naming Pillow; a 512x512x512 V4.2 PAR/REC
+   pair read and imported (STL equal).  No kernel lies on this path (the
+   counts must stay 0).
 
 It prints the card's name and power limit first, a JSON line of the
 kernels before the last line, and as the last line
@@ -157,7 +179,8 @@ from invesalius3_tpu_torch.core.mask import Mask
 from invesalius3_tpu_torch.core.project import Project
 from invesalius3_tpu_torch.core.slice import Slice
 from invesalius3_tpu_torch.core.volume import Volume
-from invesalius3_tpu_torch.io import mesh_io, nifti
+from invesalius3_tpu_torch.io import dicom, mesh_io, nifti
+from invesalius3_tpu_torch.io import dicom_codecs as codecs
 from invesalius3_tpu_torch.core.surface import Surface, create_surface_from_mask
 from invesalius3_tpu_torch.models import fastsurfer, onnx_convert, segment, unet2d, unet3d
 from invesalius3_tpu_torch.models import layers as mlayers
@@ -387,6 +410,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_models_") as d:
         models_phase(dev, Path(d))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_import_") as d:
+        study_importers(dev, Path(d))
 
     entries = [
         {"name": f"watershed_sweep[axis={axis}]", "route": "cuda",
@@ -2191,6 +2217,395 @@ def profile_segmenter(dev, seg, image) -> None:
         f"{busy:.4f} s, idle share {1 - busy / wall:.1%}")
     for name, ms, count in sorted(rows, key=lambda r: -r[1])[:10]:
         log(f"      {ms:9.3f} ms {count:6d}x  {name[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the study importers
+# ---------------------------------------------------------------------------
+
+IMPORT_N = 512  # the DICOM series: make_ct(512) as 512 files of 512^2 (phase 13)
+IMPORT_SECOND = 128  # slices of the second, smaller series in the same directory
+# name -> (transfer syntax, stored dtype, slices written at n^2); the
+# pure-Python codecs (JPEG-LS, 12-bit) take seconds a slice: a few slices
+IMPORT_CODECS = {
+    "rle": (codecs.RLE_LOSSLESS, np.int16, 32),
+    "jpegll-sv1": (codecs.JPEG_LOSSLESS_SV1, np.int16, 32),
+    "jpegls": (codecs.JPEG_LS_LOSSLESS, np.int16, 2),
+    "jpegls-near": (codecs.JPEG_LS_NEAR, np.uint16, 2),
+    "jpeg12": (codecs.JPEG_EXTENDED, np.uint16, 2),
+    "jpeg-baseline": (codecs.JPEG_BASELINE, np.uint8, 2),
+    "j2k-lossless": (codecs.J2K_LOSSLESS, np.uint16, 2),
+    "j2k": (codecs.J2K, np.uint16, 2),
+}
+PILLOW_SYNTAXES = (codecs.JPEG_BASELINE, codecs.J2K_LOSSLESS, codecs.J2K)
+STUDY_UID = "1.2.826.0.1.3680043.8.498.1"
+SERIES_UIDS = ("1.2.826.0.1.3680043.8.498.1.10000002",
+               "1.2.826.0.1.3680043.8.498.1.20000003")
+IMPORT_SPACING = 0.5
+TILT_DEGREES = 15.0
+
+
+def _dicom_tags(k: int, n: int, uid: str, **extra) -> dict:
+    """Slice k of an n-slice axial series: positions step along the normal
+    about a centred origin; stored values are HU + 1024, rescaled by -1024."""
+    c = (n - 1) * IMPORT_SPACING / 2
+    tags = {
+        "PatientName": "PHANTOM^HEAD", "PatientID": "CHIP-SMOKE-1", "Modality": "CT",
+        "StudyInstanceUID": STUDY_UID, "SeriesInstanceUID": uid,
+        "SOPInstanceUID": f"{uid}.{k + 1}", "SeriesDescription": "HEAD 0.5 H30s",
+        "StudyDate": "20260101", "StudyTime": "083000", "SeriesNumber": 2,
+        "InstanceNumber": k + 1,
+        "ImagePositionPatient": [-c, -c, -c + IMPORT_SPACING * k],
+        "ImageOrientationPatient": [1, 0, 0, 0, 1, 0],
+        "PixelSpacing": [IMPORT_SPACING, IMPORT_SPACING], "SliceThickness": IMPORT_SPACING,
+        "RescaleSlope": 1.0, "RescaleIntercept": -1024.0,
+        "WindowCenter": 40, "WindowWidth": 400}
+    tags.update(extra)
+    return tags
+
+
+def _stored(sl: np.ndarray, dtype) -> np.ndarray:
+    """A CT slice's stored pixels: HU + 1024 (8 bits: (HU + 1024) / 16)."""
+    if dtype == np.uint8:
+        return np.clip((sl.astype(np.int32) + 1024) // 16, 0, 255).astype(np.uint8)
+    return (sl.astype(np.int32) + 1024).astype(dtype)
+
+
+def write_series(root: Path, ct: np.ndarray, uid: str, syntax=dicom.EXPLICIT_VR_LE,
+                 dtype=np.int16, seed: int = 0, **extra):
+    """``ct`` as one DICOM file a slice under shuffled names; returns the
+    paths and the stored arrays in slice order."""
+    root.mkdir(parents=True, exist_ok=True)
+    names = np.random.default_rng(seed).permutation(len(ct))
+    if dtype == np.uint8:
+        extra.setdefault("RescaleSlope", 16.0)
+    paths, stored = [], []
+    for k, sl in enumerate(ct):
+        px = _stored(sl, dtype)
+        paths.append(root / f"IM{names[k]:05d}")
+        dicom.write_dicom(paths[-1], px, _dicom_tags(k, len(ct), uid, **extra),
+                          transfer_syntax=syntax)
+        stored.append(px)
+    return paths, stored
+
+
+def _expected_affine(n: int) -> np.ndarray:
+    c = (n - 1) * IMPORT_SPACING / 2
+    aff = np.diag([IMPORT_SPACING] * 3 + [1.0])
+    aff[:3, 3] = [-c, -c, -c]
+    return aff
+
+
+def _stl_digest(path: Path):
+    """(sha256, triangles) of a binary STL with finite vertices; the file
+    is then deleted (a 512^3 Bone surface is 462 MB)."""
+    import hashlib
+
+    data = path.read_bytes()
+    tris = int.from_bytes(data[80:84], "little")
+    if len(data) != 84 + 50 * tris or tris == 0:
+        raise AssertionError(f"{path.name}: not a binary STL of its header's count")
+    rec = np.frombuffer(data[84:], np.dtype([("n", "<f4", 3), ("v", "<f4", 9), ("a", "<u2")]))
+    if not np.isfinite(rec["v"]).all():
+        raise AssertionError(f"{path.name}: non-finite vertices")
+    path.unlink()
+    return hashlib.sha256(data).hexdigest(), tris
+
+
+def _timed_app(dev, argv) -> float:
+    _sync(dev)
+    t0 = time.perf_counter()
+    if app.main([str(a) for a in argv], device=dev) != 0:
+        raise AssertionError(f"app.main failed: {argv}")
+    _sync(dev)
+    return time.perf_counter() - t0
+
+
+def _decode_series(paths, stored, syntax, plain_every: int = 4) -> dict:
+    """Each file read afresh and its pixels decoded (ms a slice), held to
+    the stored array: lossless syntaxes equal, lossy ones within the JAX
+    tests' bounds; RLE and lossless JPEG every ``plain_every``-th file also
+    through the plain Python decoders, which must agree bit for bit."""
+    ms, plain_ms, worst = [], [], 0
+    for k, (p, want) in enumerate(zip(paths, stored)):
+        f = dicom.read_dicom(p)
+        t0 = time.perf_counter()
+        got = f.pixel_array()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        err = np.abs(got.astype(np.int64) - want.astype(np.int64))
+        worst = max(worst, int(err.max()))
+        ok = {codecs.JPEG_EXTENDED: err.mean() < 6.0 and err.max() < 64,
+              codecs.JPEG_LS_NEAR: err.max() <= 2,
+              codecs.JPEG_BASELINE: err.mean() < 3.0}.get(
+            syntax, err.max() == 0 and got.dtype == want.dtype)
+        if not ok:
+            raise AssertionError(f"{p.name}: pixels off by up to {err.max()} (mean "
+                                 f"{err.mean():.3f}) through {syntax}")
+        if syntax in (codecs.RLE_LOSSLESS, codecs.JPEG_LOSSLESS_SV1) and k % plain_every == 0:
+            frame = codecs.fragments_to_frames(p.read_bytes(), f.fragments, 1)[0]
+            t0 = time.perf_counter()
+            if syntax == codecs.RLE_LOSSLESS:
+                plain = codecs.rle_decode_frame(frame, *want.shape, 16,
+                                                packbits=codecs.packbits_decode_ref)
+            else:
+                plain = codecs.jpegll_decode_ref(frame)
+            plain_ms.append((time.perf_counter() - t0) * 1e3)
+            if not np.array_equal(plain.view(got.dtype), got):
+                raise AssertionError(f"{p.name}: the native and plain decoders differ")
+    return {"ms": ms, "plain_ms": plain_ms, "max_err": worst}
+
+
+def _pillow_version():
+    try:
+        import PIL
+    except ImportError:
+        return None
+    return PIL.__version__
+
+
+def study_importers(dev, tmp: Path, n: int = IMPORT_N, second: int = IMPORT_SECOND,
+                    codec_slices=None) -> dict:
+    """Phase 13: make_ct(n) as a DICOM series through the importers and
+    ``app -i`` / ``--import-all``, the gantry tilt at n^3, every transfer
+    syntax, a bitmap stack and a PAR/REC pair.  ``codec_slices`` overrides
+    IMPORT_CODECS' slice counts.  Returns seconds per step and ms a slice
+    per syntax."""
+    import os
+
+    from invesalius3_tpu_torch.io import bitmap, parrec
+
+    log(f"[13] the study importers: make_ct({n}) as {n} DICOM files of {n}^2")
+    os.environ["XDG_CONFIG_HOME"] = str(tmp / "config")  # the app's session
+    kernels.reset_launches()
+    rays.reset_launches()
+    t_phase = time.perf_counter()
+    times, decode = {}, {}
+    ct = pipeline.make_ct(n)
+    ct_d = torch.from_numpy(ct).to(dev)
+    study = tmp / "study"
+    t0 = time.perf_counter()
+    write_series(study, ct, SERIES_UIDS[0], seed=1)
+    first = n // 4
+    write_series(study / "second", ct[first:first + second], SERIES_UIDS[1], seed=2)
+    times["write"] = time.perf_counter() - t0
+    log(f"  wrote {n} + {second} files of {n}^2 (explicit VR LE, int16 HU + 1024, "
+        f"names shuffled): {times['write']:.3f} s")
+
+    # 2. the import's steps, timed
+    t0 = time.perf_counter()
+    groups = dicom.load_dicom_dir(study)
+    times["scan_parse"] = time.perf_counter() - t0
+    group = max(groups, key=lambda g: len(g.files))
+    if sorted(len(g.files) for g in groups) != sorted([n, second]):
+        raise AssertionError(f"groups: {[len(g.files) for g in groups]}")
+    files = group.sorted_files()
+    t0 = time.perf_counter()
+    for f in files:
+        f.pixel_array()
+    times["pixels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for f in files:
+        f.rescaled_slice()
+    times["rescale"] = time.perf_counter() - t0
+    _sync(dev)
+    t0 = time.perf_counter()
+    data, spacing, affine = dicom.group_to_volume(group, device=dev)
+    _sync(dev)
+    times["group_to_volume"] = time.perf_counter() - t0
+    if data.device.type != dev.type or not torch.equal(data, ct_d):
+        raise AssertionError("the DICOM volume differs from make_ct")
+    if spacing != (IMPORT_SPACING,) * 3 or not np.array_equal(affine, _expected_affine(n)):
+        raise AssertionError(f"spacing {spacing} / affine {affine.tolist()}")
+    t0 = time.perf_counter()
+    host = torch.from_numpy(ct)
+    host.to(dev)
+    _sync(dev)
+    times["h2d_pageable"] = time.perf_counter() - t0
+    if dev.type == "cuda":
+        t0 = time.perf_counter()
+        pinned = host.pin_memory()
+        times["pin"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pinned.to(dev, non_blocking=True)
+        _sync(dev)
+        times["h2d_pinned"] = time.perf_counter() - t0
+        del pinned
+    del data
+    log(f"  {len(groups)} series found; the {n}-slice volume on {dev.type} equals "
+        f"make_ct({n}) bit for bit, spacing {spacing}, affine as written")
+    log("  import steps (s): " + ", ".join(
+        f"{k} {times[k]:.4f}" for k in ("scan_parse", "pixels", "rescale", "group_to_volume",
+                                       "h2d_pageable", "pin", "h2d_pinned") if k in times))
+
+    # 3. the app: -i against the same array as a NIfTI; --import-all
+    nii = tmp / "ct.nii"
+    nifti.write_nifti(nii, ct, spacing=(IMPORT_SPACING,) * 3)
+    flow = ["-t", "Bone", "-e", tmp / "bone.stl", "--algorithm", "ca_smoothing"]
+    times["app_nifti"] = _timed_app(dev, ["--import-file", nii, *flow])
+    ref, tris = _stl_digest(tmp / "bone.stl")
+    times["app_dicom"] = _timed_app(dev, ["-i", study, *flow])
+    if _stl_digest(tmp / "bone.stl")[0] != ref:
+        raise AssertionError("app -i: the STL differs from the NIfTI flow's")
+    log(f"  app -i: {times['app_dicom']:.3f} s (the NIfTI flow {times['app_nifti']:.3f} s); "
+        f"STL bytes equal ({tris} triangles)")
+    out = tmp / "all"
+    out.mkdir()
+    times["app_import_all"] = _timed_app(
+        dev, ["-i", study, "--import-all", "-t", "Bone", "-e", out / "skull.stl",
+              "--algorithm", "ca_smoothing"])
+    names = sorted(p.name for p in out.iterdir())
+    want = sorted(f"skull_{uid[-8:]}.stl" for uid in SERIES_UIDS)
+    if names != want:
+        raise AssertionError(f"--import-all wrote {names}, not {want}")
+    digests = {name: _stl_digest(out / name) for name in names}
+    if digests[f"skull_{SERIES_UIDS[0][-8:]}.stl"][0] != ref:
+        raise AssertionError("--import-all: the large series' STL differs from -i's")
+    log(f"  app -i --import-all: {times['app_import_all']:.3f} s; "
+        + ", ".join(f"{k} ({v[1]} triangles)" for k, v in digests.items()))
+
+    # 4. the gantry tilt at n^3
+    tilted = tmp / "tilted"
+    write_series(tilted, ct, SERIES_UIDS[0], seed=3, GantryDetectorTilt=TILT_DEGREES)
+    tg = dicom.load_dicom_dir(tilted)[0]
+    for f in tg.files:
+        f.pixel_array()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+    _sync(dev)
+    t0 = time.perf_counter()
+    vol_t, _, _ = dicom.group_to_volume(tg, device=dev)
+    _sync(dev)
+    times["group_to_volume_tilt"] = time.perf_counter() - t0
+    peak = ((torch.cuda.max_memory_allocated() - base) / 2**30 if dev.type == "cuda"
+            else None)
+    sp = (IMPORT_SPACING,) * 3
+    card_ms = []
+    for _ in range(3):
+        _sync(dev)
+        t0 = time.perf_counter()
+        dicom.fix_gantry_tilt(ct_d, sp, TILT_DEGREES, device=dev)
+        _sync(dev)
+        card_ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    want_t = dicom.fix_gantry_tilt(ct, sp, TILT_DEGREES, device="cpu")
+    times["tilt_cpu"] = time.perf_counter() - t0
+    diff = (vol_t.cpu().int() - want_t.int()).abs()
+    same = float((diff == 0).double().mean())
+    if int(diff.max()) > 1 or same < 0.999:
+        raise AssertionError(f"tilt: card and CPU differ by up to {int(diff.max())}, "
+                             f"equal on {same:.6f}")
+    moved = float((want_t != torch.from_numpy(ct)).double().mean())
+    times["tilt_ms"] = card_ms
+    log(f"  {TILT_DEGREES:g} degree tilt at {n}^3: group_to_volume "
+        f"{times['group_to_volume_tilt']:.3f} s; fix_gantry_tilt on {dev.type} "
+        f"{[round(t, 2) for t in card_ms]} ms, on the CPU {times['tilt_cpu'] * 1e3:.1f} ms; "
+        f"equal on {same:.6%} of voxels, largest difference {int(diff.max())} "
+        f"({moved:.1%} of voxels moved); peak device memory "
+        + (f"{peak:.3f} GiB above the {base / 2**30:.3f} GiB held before"
+           if peak is not None else "n/a"))
+    del vol_t, want_t, diff, ct_d
+
+    # 5. compressed transfer syntaxes at n^2
+    pillow = _pillow_version()
+    log(f"pillow: {pillow or 'absent'}")
+    mid = n // 2
+    for name, (syntax, dtype, count) in IMPORT_CODECS.items():
+        if syntax in PILLOW_SYNTAXES and pillow is None:
+            continue
+        count = (codec_slices or {}).get(name, count)
+        sl = ct[mid - count // 2: mid - count // 2 + count]
+        t0 = time.perf_counter()
+        paths, stored = write_series(tmp / name, sl, f"{STUDY_UID}.3{len(decode)}",
+                                     syntax=syntax, dtype=dtype, seed=4)
+        enc = (time.perf_counter() - t0) * 1e3 / count
+        rec = _decode_series(paths, stored, syntax)
+        rec["encode_ms"] = enc
+        decode[name] = rec
+        extra = ""
+        if syntax in (codecs.RLE_LOSSLESS, codecs.JPEG_LOSSLESS_SV1):
+            g = dicom.load_dicom_dir(tmp / name)[0]
+            vol, _, _ = dicom.group_to_volume(g, device=dev)
+            if not torch.equal(vol.cpu(), torch.from_numpy(sl)):
+                raise AssertionError(f"{name}: the series' volume differs from make_ct")
+            extra = (f"; plain decoder {np.mean(rec['plain_ms']):.1f} ms a slice on "
+                     f"{len(rec['plain_ms'])} slices, equal; the series' volume equal")
+        log(f"  {name} ({syntax}), {count} slices: decode {np.mean(rec['ms']):.2f} ms a "
+            f"slice (encode {enc:.1f}), largest error {rec['max_err']}{extra}")
+
+    # 6. Pillow's paths, the bitmap stack and PAR/REC
+    stack = tmp / "stack"
+    stack.mkdir()
+    if pillow is None:
+        (stack / "slice1.tif").write_bytes(b"II*\x00")
+        for what, call in (
+                ("bitmap.load_bitmap_dir", lambda: bitmap.load_bitmap_dir(stack)),
+                ("app --import-folder", lambda: app.main(
+                    ["--import-folder", str(stack), "-t", "1250,4095"], device=dev)),
+                ("baseline JPEG", lambda: codecs.jpeg_baseline_decode(b"\xff\xd8")),
+                ("JPEG 2000", lambda: codecs.j2k_decode(b"\x00")),
+                ("write_dicom .4.90", lambda: dicom.write_dicom(
+                    tmp / "x.dcm", ct[0], {}, transfer_syntax=codecs.J2K_LOSSLESS))):
+            try:
+                call()
+            except ImportError as e:
+                if "Pillow" not in str(e):
+                    raise
+            else:
+                raise AssertionError(f"{what} ran without Pillow")
+        log("  without Pillow, the bitmap stack, baseline JPEG and JPEG 2000 raise an "
+            "ImportError that names Pillow")
+    else:
+        from PIL import Image
+
+        t0 = time.perf_counter()
+        for k, s in enumerate(ct):
+            Image.fromarray(_stored(s, np.uint16)).save(stack / f"slice{k + 1}.tif")
+        times["write_stack"] = time.perf_counter() - t0
+        times["app_bitmap"] = _timed_app(dev, [
+            "--import-folder", stack, "--spacing", ",".join([str(IMPORT_SPACING)] * 3),
+            "-t", "1250,4095", "-e", tmp / "bone.stl", "--algorithm", "ca_smoothing"])
+        if _stl_digest(tmp / "bone.stl")[0] != ref:
+            raise AssertionError("--import-folder: the STL differs from the NIfTI flow's")
+        log(f"  app --import-folder --spacing: {n} 16-bit TIFF slices (HU + 1024, "
+            f"written in {times['write_stack']:.2f} s), Bone shifted by 1024: "
+            f"{times['app_bitmap']:.3f} s, STL bytes equal the NIfTI flow's")
+    par = tmp / "ct.PAR"
+    rows = [" ".join(f"{v:g}" for v in [
+        sl + 1, 1, 1, 1, 0, 0, sl, 16, 100, n, n, 0.0, 1.0, 1.0, 40, 400] + [0.0] * 12
+        + [IMPORT_SPACING, IMPORT_SPACING] + [0.0] * 3) for sl in range(n)]
+    par.write_text("\n".join([
+        "# === DATA DESCRIPTION FILE ======================================",
+        "# Research image export tool     V4.2",
+        ".    Patient name                       :   PHANTOM",
+        f".    Max. number of slices/locations    :   {n}",
+        ".    Max. number of dynamics             :   1",
+        f".    Recon resolution (x, y)            :   {n}  {n}",
+        f".    Slice thickness [mm]               :   {IMPORT_SPACING:.3f}",
+        ".    Slice gap [mm]                     :   0.000",
+        "# === IMAGE INFORMATION =========================================="] + rows) + "\n")
+    ct.astype("<i2").tofile(tmp / "ct.REC")
+    t0 = time.perf_counter()
+    vol_p, sp_p = parrec.read_par_rec(par)
+    times["parrec_read"] = time.perf_counter() - t0
+    if vol_p.dtype != np.int16 or not np.array_equal(vol_p, ct) or sp_p != sp:
+        raise AssertionError("PAR/REC: the volume or spacing differs")
+    times["app_parrec"] = _timed_app(dev, ["--import-file", par, *flow])
+    if _stl_digest(tmp / "bone.stl")[0] != ref:
+        raise AssertionError("PAR/REC: the STL differs from the NIfTI flow's")
+    log(f"  PAR/REC V4.2 {n}x{n}x{n}: read {times['parrec_read']:.3f} s, equal to "
+        f"make_ct; app --import-file {times['app_parrec']:.3f} s, STL bytes equal")
+
+    launches = {"sweeps": dict(kernels.LAUNCHES),
+                "rays": {k: dict(v) for k, v in rays.LAUNCHES.items()}}
+    times["phase"] = time.perf_counter() - t_phase
+    log(f"  phase [13]: {times['phase']:.1f} s; kernel launches on this path: "
+        f"{launches} (no kernel lies on it)")
+    if any(kernels.LAUNCHES.values()) or any(
+            v for per_axis in rays.LAUNCHES.values() for v in per_axis.values()):
+        raise AssertionError(f"a hot-path kernel launched on the importers' path: {launches}")
+    return {"times": times, "decode": decode}
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Build the port's native libraries from the repository's sources.
 
-Four shared libraries, each with a plain C interface loaded through ctypes:
+Five shared libraries, each with a plain C interface loaded through ctypes:
 
 - ``watershed_sweep``: ``csrc/watershed_sweep.cu``, compiled by ``nvcc`` for
   ``sm_90a`` (Hopper).  Only a CUDA tensor ever asks for it.
@@ -12,6 +12,8 @@ Four shared libraries, each with a plain C interface loaded through ctypes:
   copy of the JAX package's record packer), compiled by ``g++``.
 - ``decimate``: the host QEM edge-collapse decimator ``csrc/decimate.cpp``
   (the port's own copy of the JAX package's), compiled by ``g++``.
+- ``codecs``: the host DICOM decoders ``csrc/codecs.cpp`` (lossless JPEG and
+  PackBits; the port's own copy of the JAX package's), compiled by ``g++``.
 
 Every source lies in this package: the port builds nothing from the JAX
 package's tree.
@@ -59,8 +61,8 @@ def _nvcc() -> str:
 def _gxx() -> str:
     gxx = shutil.which("g++")
     if gxx is None:
-        raise RuntimeError("g++ not found: it builds the STL packer and the "
-                           "decimator")
+        raise RuntimeError("g++ not found: it builds the STL packer, the "
+                           "decimator and the DICOM codecs")
     return gxx
 
 
@@ -68,8 +70,10 @@ class _Lib(NamedTuple):
     compiler: Callable[[], str]
     flags: List[str]
     sources: Tuple[Path, ...]
-    # C function name -> argtypes (every function returns int)
+    # C function name -> argtypes (a function returns int unless ``returns``
+    # names another type)
     functions: Dict[str, list]
+    returns: Dict[str, type] = {}
 
 
 LIBS: Dict[str, _Lib] = {
@@ -89,6 +93,11 @@ LIBS: Dict[str, _Lib] = {
     "decimate": _Lib(
         _gxx, GXX_FLAGS, (_HERE / "csrc" / "decimate.cpp",),
         {"decimate_qem": [P, I64, P, I64, I64, P, P, P, P]}),
+    "codecs": _Lib(
+        _gxx, GXX_FLAGS, (_HERE / "csrc" / "codecs.cpp",),
+        {"jpegll_decode": [P, I64, P, I64, P, P, P],
+         "packbits_decode": [P, I64, P, I64]},
+        {"packbits_decode": I64}),
 }
 
 _locks = {name: threading.Lock() for name in LIBS}
@@ -129,7 +138,7 @@ def _load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_compile(name, spec.compiler(), spec.flags,
                                        spec.sources)))
         for fn, argtypes in spec.functions.items():
-            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).restype = spec.returns.get(fn, ctypes.c_int)
             getattr(lib, fn).argtypes = argtypes
         _libs[name] = lib
         return lib
@@ -149,6 +158,10 @@ def meshpack_lib() -> ctypes.CDLL:
 
 def decimate_lib() -> ctypes.CDLL:
     return _load("decimate")
+
+
+def codecs_lib() -> ctypes.CDLL:
+    return _load("codecs")
 
 
 def build_all() -> Dict[str, dict]:

@@ -6,7 +6,13 @@ unless asked for the CPU:
     app.main([...], device="cpu")   # the same flow on the CPU
 
 The batch flags of the reference's command line (reference app.py:391-518):
-  --import-file FILE   import a NIfTI/Analyze file or an .inv3 project
+  -i/--import DIR      import a DICOM directory (its largest series)
+  --import-all         with -i and -e: one surface a series, named
+                       <stem>_<last 8 characters of the series UID><suffix>
+  --import-folder DIR  import a bitmap stack directory (needs Pillow)
+  --spacing SX,SY,SZ   the bitmap stack's spacing
+  --import-file FILE   import a NIfTI/Analyze file, a PAR/REC pair or an
+                       .inv3 project
   --import-surface F   import a mesh (STL/PLY/OBJ/VTP/3MF/VRML/.bin) as a
                        surface, small holes capped; alone: report and
                        re-export it with -e
@@ -24,10 +30,8 @@ The batch flags of the reference's command line (reference app.py:391-518):
                        exported to OUT; needs the cranioplasty_jit_ct_binary
                        checkpoint under the models dir
 
-DICOM (-i, --import-all), bitmap stacks (--import-folder; --spacing is
-read only there), PAR/REC, --serve, --shell, --remote-host and --use-pedal
-need modules the port does not have yet: each exits with a message naming
-the missing module.
+--serve, --shell, --remote-host and --use-pedal need modules the port does
+not have yet: each exits with a message naming the missing module.
 """
 
 from __future__ import annotations
@@ -46,9 +50,6 @@ from invesalius3_tpu_torch.utils.i18n import tr
 
 # flags whose module is still to port: (argparse dest, what they need)
 _NOT_PORTED = {
-    "dicom_dir": "-i/--import needs io/dicom.py",
-    "import_all": "--import-all needs io/dicom.py",
-    "bitmap_dir": "--import-folder needs io/bitmap.py",
     "serve": "--serve needs server.py",
     "shell": "--shell needs the port's ops namespace (app.run_shell)",
     "remote_host": "--remote-host needs net/remote_control.py",
@@ -103,21 +104,75 @@ def _refuse_not_ported(args) -> None:
                              "ported yet")
 
 
+def _dicom_groups(directory):
+    from invesalius3_tpu_torch.io import dicom
+
+    groups = dicom.load_dicom_dir(directory)
+    if not groups:
+        raise SystemExit(tr("no DICOM series found in {dir}").format(dir=directory))
+    return groups
+
+
+def _dicom_volume(group, device) -> Volume:
+    """A DICOM series' volume on ``device``: its tensor, not a copy."""
+    from invesalius3_tpu_torch.io import dicom
+
+    data, spacing, affine = dicom.group_to_volume(group, device=device)
+    return Volume.from_tensor(data, spacing=spacing, affine=affine,
+                              modality=group.files[0].get("Modality", "CT"))
+
+
 def import_data(args, device) -> Volume:
-    """The volume of --import-file (NIfTI/Analyze or .inv3) on ``device``."""
+    """The volume of -i (the largest series), --import-folder or
+    --import-file (NIfTI/Analyze, PAR/REC or .inv3) on ``device``."""
+    if args.dicom_dir:
+        groups = _dicom_groups(args.dicom_dir)
+        return _dicom_volume(max(groups, key=lambda g: len(g.files)), device)
+    if args.bitmap_dir:
+        from invesalius3_tpu_torch.io import bitmap
+
+        spacing = (1.0, 1.0, 1.0)
+        if args.spacing:
+            spacing = tuple(float(x) for x in args.spacing.split(","))
+        data, spacing = bitmap.load_bitmap_dir(args.bitmap_dir, spacing)
+        return Volume.from_numpy(data, spacing=spacing, device=device)
     if not args.other_file:
-        raise SystemExit(tr("no input given: use --import-file"))
+        raise SystemExit(tr("no input given: use -i / --import-folder / --import-file"))
     path = Path(args.other_file)
     if path.suffix == ".inv3":
         return Project.open(path, device=device).volume
     if path.suffix.lower() in (".par", ".rec"):
-        raise SystemExit("invesalius3_tpu_torch: PAR/REC import needs "
-                         "io/parrec.py, which is not ported yet")
+        from invesalius3_tpu_torch.io import parrec
+
+        data, spacing = parrec.read_par_rec(path)
+        return Volume.from_numpy(data, spacing=spacing, device=device)
     from invesalius3_tpu_torch.io import nifti
 
     img = nifti.read_nifti(path)
     return Volume.from_numpy(img.data, spacing=img.spacing, affine=img.affine,
                              device=device)
+
+
+def import_all(args, device) -> int:
+    """--import-all: every DICOM series thresholded and, with -e, its surface
+    exported as <stem>_<series UID[-8:]><suffix> (reference app.py:490-497)."""
+    for g in _dicom_groups(args.dicom_dir):
+        vol = _dicom_volume(g, device)
+        gslc = Slice(vol)
+        if args.threshold:
+            tmin, tmax = parse_threshold(args.threshold, vol.modality)
+            gslc.create_new_mask(threshold_range=(tmin, tmax))
+        else:
+            gslc.create_new_mask()
+        if args.export_surface:
+            surf = gslc.create_surface_from_mask(
+                quality=args.quality, algorithm=args.algorithm)
+            base = Path(args.export_surface)
+            title = g.preview_info()["series_uid"][-8:]
+            out = base.with_name(f"{base.stem}_{title}{base.suffix}")
+            surf.export(str(out))
+            print(tr("exported {path}").format(path=out), file=sys.stderr)
+    return 0
 
 
 def parse_threshold(spec: str, modality: str = "CT"):
@@ -177,6 +232,8 @@ def main(argv=None, device=DEFAULT_DEVICE) -> int:
                 print(tr("exported {path}").format(path=args.export_surface),
                       file=sys.stderr)
             return 0
+        if args.import_all and args.dicom_dir:
+            return import_all(args, device)
         volume = import_data(args, device)
         from invesalius3_tpu_torch.utils.logging import ensure_logging, get_logger
 

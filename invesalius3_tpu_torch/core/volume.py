@@ -60,9 +60,17 @@ class Volume:
         a = np.ascontiguousarray(array)
         if not a.flags.writeable:
             a = a.copy()
-        data = torch.from_numpy(a).to(device)
+        return cls.from_tensor(torch.from_numpy(a).to(device), spacing=spacing,
+                               affine=affine, modality=modality, **kw)
+
+    @classmethod
+    def from_tensor(cls, data: torch.Tensor,
+                    spacing: Tuple[float, float, float] = (1.0, 1.0, 1.0),
+                    affine: Optional[np.ndarray] = None, modality: str = "CT",
+                    **kw) -> "Volume":
+        """The volume of a tensor where it lies, without a copy."""
         if affine is None:
-            affine = default_affine(array.shape, spacing)
+            affine = default_affine(tuple(data.shape), spacing)
         return cls(data=data, spacing=tuple(spacing), affine=affine,
                    modality=modality, **kw)
 

@@ -1,10 +1,12 @@
-"""The port's host-side native decimator (port of
-invesalius3_tpu/native/__init__.py ``decimate_qem``).
+"""The port's host-side native decimator and DICOM decoders (port of
+invesalius3_tpu/native/__init__.py ``decimate_qem``, ``jpegll_decode`` and
+``packbits_decode``).
 
 ``csrc/decimate.cpp`` is a Garland-Heckbert QEM edge-collapse simplifier
 replacing the reference's vtkQuadricDecimation (surface_process.py:350-372).
-It is built by ``_build`` with g++ at first use; a failed build raises, and
-nothing falls back to another algorithm.
+``csrc/codecs.cpp`` decodes lossless JPEG (process 14) frames and PackBits
+(DICOM RLE) segments.  Each is built by ``_build`` with g++ at first use; a
+failed build raises, and nothing falls back to another implementation.
 """
 
 from __future__ import annotations
@@ -38,3 +40,35 @@ def decimate_qem(verts: np.ndarray, faces: np.ndarray,
     if rc != 0:
         raise RuntimeError(f"decimate_qem failed with code {rc}")
     return out_v[: nv.value].copy(), out_f[: nf.value].copy()
+
+
+def jpegll_decode(data: bytes) -> np.ndarray:
+    """Decode one lossless-JPEG (SOF3) frame -> (rows, cols) or
+    (rows, cols, ncomp) uint16.  Raises RuntimeError on a bad stream."""
+    lib = _build.codecs_lib()
+    src = np.frombuffer(data, np.uint8)
+    # the JAX package's capacity: the compressed length's bound or 2^22
+    # samples, whichever is larger
+    cap = max(len(data) * 8, 1 << 22)
+    out = np.empty(cap, np.uint16)
+    dims = np.zeros(3, np.int32)  # rows, cols, ncomp
+    rc = lib.jpegll_decode(src.ctypes.data, len(src), out.ctypes.data, cap,
+                           dims[0:].ctypes.data, dims[1:].ctypes.data,
+                           dims[2:].ctypes.data)
+    if rc != 0:
+        raise RuntimeError(f"jpegll_decode failed with code {rc}")
+    rows, cols, ncomp = (int(d) for d in dims)
+    arr = out[: rows * cols * ncomp].copy()
+    if ncomp > 1:
+        return arr.reshape(rows, cols, ncomp)
+    return arr.reshape(rows, cols)
+
+
+def packbits_decode(data: bytes, expected: int) -> bytes:
+    """Decode one PackBits-compressed RLE segment to at most ``expected``
+    bytes."""
+    lib = _build.codecs_lib()
+    src = np.frombuffer(data, np.uint8)
+    dst = np.empty(expected, np.uint8)
+    n = lib.packbits_decode(src.ctypes.data, len(src), dst.ctypes.data, expected)
+    return dst[:n].tobytes()

@@ -1,5 +1,7 @@
 """The port's headless app (``app.main(..., device="cpu")``) against the JAX
-package's ``app.main`` on one small NIfTI CT.
+package's ``app.main`` on one small NIfTI CT, and on the same CT imported as
+a DICOM series (``-i``, ``--import-all``), a bitmap stack
+(``--import-folder`` with ``--spacing``) and a PAR/REC pair.
 
 Both runs start from the same process-wide mask and surface counters, so
 masks and surfaces get the same indices and names.  Compared: STL files
@@ -209,10 +211,6 @@ def test_reopen_saved_project(tmp_path, monkeypatch, ct_file):
 
 
 @pytest.mark.parametrize("argv,module", [
-    (["-i", "dicoms"], "io/dicom.py"),
-    (["--import-all"], "io/dicom.py"),
-    (["--import-folder", "pngs"], "io/bitmap.py"),
-    (["--import-file", "scan.par"], "io/parrec.py"),
     (["--serve", "8000"], "server.py"),
     (["--shell"], "run_shell"),
     (["--remote-host", "localhost:5000"], "net/remote_control.py"),
@@ -222,6 +220,131 @@ def test_flags_still_to_port_exit_naming_the_module(tmp_path, monkeypatch, argv,
     monkeypatch.setenv("XDG_CONFIG_HOME", str(tmp_path))
     with pytest.raises(SystemExit, match=module.replace(".", r"\.")):
         app.main(argv, device="cpu")
+
+
+def _triangles(path) -> int:
+    return (Path(path).stat().st_size - 84) // 50
+
+
+def _dicom_series(root, ct, series="1.2.826.0.1.3680043.2.1125.1", modality="CT",
+                  intercept=0.0, **extra):
+    """``ct`` written slice by slice by the JAX package's writer, spacing
+    SPACING, file names shuffled (int16 pixels, or uint16 shifted by the
+    intercept)."""
+    from invesalius3_tpu.io import dicom as dicom_jax
+
+    root.mkdir(parents=True, exist_ok=True)
+    order = np.random.default_rng(1).permutation(len(ct))
+    for name, z in enumerate(order):
+        px = ct[z] if not intercept else (ct[z] - intercept).astype(np.uint16)
+        dicom_jax.write_dicom(root / f"IM{name:04d}", px, {
+            "PatientID": "P1", "PatientName": "Phantom", "Modality": modality,
+            "StudyInstanceUID": "1.2.826.0.1.3680043.2.1125", "SeriesInstanceUID": series,
+            "InstanceNumber": int(z) + 1, "ImageOrientationPatient": [1, 0, 0, 0, 1, 0],
+            "ImagePositionPatient": [-12.0, -14.4, SPACING[2] * int(z)],
+            "PixelSpacing": [SPACING[1], SPACING[0]], "RescaleSlope": 1.0,
+            "RescaleIntercept": intercept, **extra})
+    return root
+
+
+@pytest.mark.parametrize("case", ["Default", "ca_smoothing", "MR"])
+def test_dicom_import(tmp_path, monkeypatch, case):
+    """-i: the series read, thresholded with the modality's preset, its
+    surface and the saved project equal the JAX app's."""
+    modality = "MR" if case == "MR" else "CT"
+    series = _dicom_series(tmp_path / "series", _ct(48), modality=modality)
+    algorithm = "ca_smoothing" if case == "ca_smoothing" else "Default"
+    port, jax_ = _run(tmp_path, monkeypatch, [
+        "-i", str(series), "-t", "Bone", "-e", "{out}/bone.stl", "-s", "{out}/proj.inv3",
+        "--algorithm", algorithm])
+    _same_stl(port / "bone.stl", jax_ / "bone.stl", algorithm == "ca_smoothing")
+    assert _triangles(port / "bone.stl") > 1000
+    if algorithm == "Default":
+        main = plistlib.loads(_same_inv3(port / "proj.inv3", jax_ / "proj.inv3")["main.plist"])
+        assert main["modality"] == modality
+
+
+def test_dicom_import_takes_the_largest_series(tmp_path, monkeypatch):
+    root = tmp_path / "study"
+    _dicom_series(root / "a", _ct(20), series="1.2.3.20")
+    _dicom_series(root / "b", _ct(24)[:, :22], series="1.2.3.24", intercept=-1024.0)
+    port, jax_ = _run(tmp_path, monkeypatch, [
+        "-i", str(root), "-t", "Bone", "-e", "{out}/bone.stl", "-s", "{out}/proj.inv3"])
+    _same_stl(port / "bone.stl", jax_ / "bone.stl")
+    assert _triangles(port / "bone.stl") > 1000
+    members = _same_inv3(port / "proj.inv3", jax_ / "proj.inv3")
+    assert plistlib.loads(members["main.plist"])["matrix"]["shape"] == [24, 22, 24]
+
+
+def test_import_all_one_surface_a_series(tmp_path, monkeypatch):
+    """--import-all: a surface for each series, named by the last eight
+    characters of its UID; the second series is gantry-tilted."""
+    root = tmp_path / "study"
+    _dicom_series(root, _ct(32), series="1.2.840.99.11111111")
+    _dicom_series(root / "tilted", _ct(24), series="1.2.840.99.22222222",
+                  intercept=-1024.0, GantryDetectorTilt=12.0)
+    port, jax_ = _run(tmp_path, monkeypatch, [
+        "-i", str(root), "--import-all", "-t", "Bone", "-e", "{out}/skull.stl"])
+    names = sorted(p.name for p in port.iterdir())
+    assert names == sorted(p.name for p in jax_.iterdir())
+    assert names == ["skull_11111111.stl", "skull_22222222.stl"]
+    for name in names:
+        _same_stl(port / name, jax_ / name)
+        assert _triangles(port / name) > 1000
+
+
+def test_import_folder_with_spacing(tmp_path, monkeypatch):
+    from PIL import Image
+
+    stack = tmp_path / "stack"
+    stack.mkdir()
+    for z, sl in enumerate(_ct(40) + 1024):
+        Image.fromarray(sl.astype(np.uint16)).save(stack / f"slice{z + 1}.png")
+    port, jax_ = _run(tmp_path, monkeypatch, [
+        "--import-folder", str(stack), "--spacing", "0.5,0.6,0.7", "-t", "2000,3071",
+        "-e", "{out}/bone.stl", "-s", "{out}/proj.inv3"])
+    _same_stl(port / "bone.stl", jax_ / "bone.stl")
+    assert _triangles(port / "bone.stl") > 1000
+    members = _same_inv3(port / "proj.inv3", jax_ / "proj.inv3")
+    assert plistlib.loads(members["main.plist"])["spacing"] == [0.5, 0.6, 0.7]
+
+
+@pytest.mark.parametrize("rescale", [False, True])
+def test_parrec_import_file(tmp_path, monkeypatch, rescale):
+    """A PAR/REC pair through --import-file (the REC file named): int16
+    without a rescale, float32 with one."""
+    ct = _ct(32)
+    nz, ny, nx = ct.shape
+    rs, ri = (0.5, -1000.0) if rescale else (1.0, 0.0)
+    rows = [" ".join(f"{v:g}" for v in [sl, 1, 1, 1, 0, 0, sl - 1, 16, 100, nx, ny, ri, rs,
+                                        1.0, 50, 100] + [0.0] * 12 + [0.6, 0.5] + [0.0] * 3)
+            for sl in range(1, nz + 1)]
+    (tmp_path / "ct.PAR").write_text("\n".join([
+        "# Research image export tool     V4.2",
+        f".    Max. number of slices/locations    :   {nz}",
+        f".    Recon resolution (x, y)            :   {nx}  {ny}",
+        ".    Slice thickness [mm]               :   0.700",
+        ".    Slice gap [mm]                     :   0.000"] + rows) + "\n")
+    pv = ((ct - ri) / rs).astype("<i2")
+    pv.tofile(tmp_path / "ct.REC")
+    port, jax_ = _run(tmp_path, monkeypatch, [
+        "--import-file", str(tmp_path / "ct.REC"), "-t", "Bone", "-e", "{out}/bone.stl",
+        "-s", "{out}/proj.inv3"])
+    _same_stl(port / "bone.stl", jax_ / "bone.stl")
+    assert _triangles(port / "bone.stl") > 1000
+    _same_inv3(port / "proj.inv3", jax_ / "proj.inv3")
+
+
+def test_import_errors_exit_as_the_jax_app(tmp_path, monkeypatch):
+    monkeypatch.setenv("XDG_CONFIG_HOME", str(tmp_path / "config"))
+    (tmp_path / "empty").mkdir()
+    for argv, match in ((["-i", str(tmp_path / "empty")], "no DICOM series"),
+                        (["-i", str(tmp_path / "empty"), "--import-all"], "no DICOM series"),
+                        (["--import-all"], "no input given"),
+                        ([], "no input given")):
+        for main in (lambda a: app.main(a, device="cpu"), app_jax.main):
+            with pytest.raises(SystemExit, match=match):
+                main(argv)
 
 
 def test_defaults_to_the_card_and_debug_prints_events(tmp_path, monkeypatch, ct_file, capsys):

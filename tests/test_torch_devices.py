@@ -19,6 +19,7 @@ from invesalius3_tpu_torch.core import surface
 from invesalius3_tpu_torch.core.mask import Mask
 from invesalius3_tpu_torch.core.project import Project
 from invesalius3_tpu_torch.core.volume import Volume
+from invesalius3_tpu_torch.io import dicom
 from invesalius3_tpu_torch.models import fastsurfer, layers, segment, unet2d, unet3d
 from invesalius3_tpu_torch.ops import (connected, filters, floodfill, mesh, morphology,
                                        rasterize, raycast, render_mesh, reslice, resize)
@@ -40,8 +41,11 @@ ENTRY_POINTS = {
     "Project.open": Project.open,
     "mesh.vertex_adjacency_fast": mesh.vertex_adjacency_fast,
     "floodfill.seeds_to_mask": floodfill.seeds_to_mask,
+    "dicom.group_to_volume": dicom.group_to_volume,
+    "dicom.fix_gantry_tilt": dicom.fix_gantry_tilt,
     # entry points whose results are host arrays or files
     "app.main": app.main,
+    "app.main[-i]": app.main,
     "Surface.compute_properties": surface.Surface.compute_properties,
     "surface.import_surface_file": surface.import_surface_file,
     "surface.merge_surfaces": surface.merge_surfaces,
@@ -127,7 +131,22 @@ CALLS = {
         (6, 7, 8), [(1, 2, 3)], **kw),
     "rasterize.polygon2mask": lambda tmp, **kw: rasterize.polygon2mask(
         (6, 7), [(1, 1), (5, 1), (3, 6)], **kw),
+    "dicom.group_to_volume": lambda tmp, **kw: dicom.group_to_volume(
+        dicom.load_dicom_dir(_series(tmp))[0], **kw)[0],
+    "dicom.fix_gantry_tilt": lambda tmp, **kw: dicom.fix_gantry_tilt(
+        _ct(), (1.0, 1.0, 1.0), 15.0, **kw),
 }
+
+
+def _series(tmp, tilt=0.0):
+    """_ct() as a DICOM series (gantry-tilted when ``tilt``)."""
+    d = tmp / "series"
+    d.mkdir(exist_ok=True)
+    for z, sl in enumerate(_ct()):
+        dicom.write_dicom(d / f"s{z}.dcm", sl, {
+            "SeriesInstanceUID": "1.2.3", "ImagePositionPatient": [0.0, 0.0, float(z)],
+            "ImageOrientationPatient": [1, 0, 0, 0, 1, 0], "GantryDetectorTilt": tilt})
+    return d
 
 
 def _cube():
@@ -193,6 +212,8 @@ HOST_CALLS = {
         np.where(_ct() > 0, 4, 0), 1.0, **kw),
     "app.run_cranioplasty": _cranioplasty,
     "app.main": _app,
+    "app.main[-i]": lambda tmp, **kw: app.main(
+        ["-i", str(_series(tmp, tilt=10.0)), "-t", "Bone", "-e", str(tmp / "o.stl")], **kw),
     "Surface.compute_properties": lambda tmp, **kw: _surface().compute_properties(**kw),
     "surface.import_surface_file": lambda tmp, **kw: surface.import_surface_file(
         _stl(tmp), **kw),
