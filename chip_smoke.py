@@ -152,6 +152,30 @@ Phases, each fatal on failure (no phase catches an error):
    the Pillow paths must raise naming Pillow; a 512x512x512 V4.2 PAR/REC
    pair read and imported (STL equal).  No kernel lies on this path (the
    counts must stay 0).
+14. drives the neuronavigation path (``navigation_phase``): the same
+   sequence at small sizes on the card and on the CPU first (three peel
+   modes on ``_mri(40)``, JFA at 64^3 and 128^3 bit for bit, ICP's matches
+   at every iteration, tracking with the same draws on both, e-field and
+   MEP); then ``Brain(n_peels=5, peel_depth_mm=1.0)`` in every mode on the
+   256^3 T1 phantom of phase 12 and its bright ellipsoid (every peel closed
+   and oriented, intensities finite and inside the image's range; stage
+   times), ``jump_flooding`` at 512^3 with 64 sites (on 10^5 sampled
+   voxels: every distance the owner site's, and owners the exact nearest
+   site on all but 0.1% of the strictly decided ones, those at most a voxel
+   farther: JFA is approximate),
+   ``jump_flooding_normalized`` and both ``floodfill_voronoi`` distances at
+   256^3, ICP of 1000 points moved by a known 1 degree, 1.35 mm transform
+   onto 10^6 vertices of the T1 phantom's scalp and brain surfaces, 150
+   iterations (recovered within 0.2 mm), deterministic and probabilistic tracking on a seeded lmax 8 FOD
+   at the HCP grid 145x174x145 (64 tracts x 120 steps a pose; a bundle of
+   10^4 seeds x 200 steps x 16 candidates), e-field norms over 10^5 ROI
+   vertices, the MEP field of peel 0 from 200 markers; per op the wall time
+   (first and warm, device synchronised) and the peak memory; then
+   ``Navigation`` with the debug-approach tracker at 120 Hz for 5 s with the
+   tract and e-field workers on the card: at least 100 scene updates and a
+   tract and an e-field message of the expected shapes, with the counts and
+   the median and p95 latency from a pose's timestamp to its publication.
+   No kernel lies on this path (the counts must stay 0).
 
 It prints the card's name and power limit first, a JSON line of the
 kernels before the last line, and as the last line
@@ -413,6 +437,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_import_") as d:
         study_importers(dev, Path(d))
+    torch.cuda.empty_cache()
+    navigation_phase(dev)
 
     entries = [
         {"name": f"watershed_sweep[axis={axis}]", "route": "cuda",
@@ -2606,6 +2632,447 @@ def study_importers(dev, tmp: Path, n: int = IMPORT_N, second: int = IMPORT_SECO
             v for per_axis in rays.LAUNCHES.values() for v in per_axis.values()):
         raise AssertionError(f"a hot-path kernel launched on the importers' path: {launches}")
     return {"times": times, "decode": decode}
+
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the neuronavigation path
+# ---------------------------------------------------------------------------
+
+NAV_MRI_N = 256  # the brain peel's T1 phantom (phase 12's _mri), 1 mm
+NAV_PEEL_THRESHOLD = 550  # the phantom's bright ellipsoid (800 +- 25; around it 300)
+NAV_JFA_N = 512  # JFA with 64 sites: owners int32 and distances float32, 512 MiB each
+NAV_JFA_SITES = 64
+NAV_VORONOI_N = 256  # jump_flooding_normalized and floodfill_voronoi
+NAV_ICP_SOURCE = 1000
+NAV_ICP_TARGETS = 10 ** 6  # vertices sampled from the T1 phantom's scalp and brain surfaces
+# the known transform: 1.0 degree about one axis and 1.35 mm (twice that
+# falls into a local minimum 1.95 mm off on these smooth surfaces); ICP runs
+# a fixed 150 iterations, since its stopping test (the RMS error changing by
+# under 1e-5 mm) meets plateaus before convergence and float32 noise of
+# about 1e-3 mm after it
+NAV_ICP_ROTATION = (0.01, -0.0075, 0.0125)  # radians
+NAV_ICP_SHIFT = (1.0, -0.75, 0.5)  # mm
+NAV_ICP_ITERATIONS = 150
+NAV_FOD_SHAPE = (145, 174, 145)  # the HCP 1.25 mm grid
+NAV_FOD_MM = 1.25
+NAV_LMAX = 8  # 45 coefficients: the FOD takes 658 MiB of float32
+NAV_BUNDLE = (10 ** 4, 200, 16)  # seeds, steps, candidates of the throughput run
+NAV_ROI = 10 ** 5  # e-field ROI vertices a pose
+NAV_MARKERS = 200  # MEP markers over peel 0
+NAV_SESSION_S = 5.0
+NAV_PATH_ATOL = 1e-4  # card against CPU tract paths, voxels (sin, cos, atan2 differ by ulps)
+
+
+def _oriented_share(faces: np.ndarray, n_verts: int) -> float:
+    """The share of directed edges that occur once and whose reverse occurs
+    once: 1.0 on a closed, consistently oriented mesh."""
+    f = np.asarray(faces, np.int64)
+    a = np.concatenate([f[:, 0], f[:, 1], f[:, 2]])
+    b = np.concatenate([f[:, 1], f[:, 2], f[:, 0]])
+    keys, counts = np.unique(a * n_verts + b, return_counts=True)
+    once = counts[np.searchsorted(keys, a * n_verts + b)] == 1
+    rev = b * n_verts + a
+    pos = np.clip(np.searchsorted(keys, rev), 0, len(keys) - 1)
+    rev_once = (keys[pos] == rev) & (counts[pos] == 1)
+    return float((once & rev_once).mean())
+
+
+def _peel_checks(name: str, brain, image: np.ndarray, n_peels: int) -> str:
+    """Every peel closed and oriented (all of its edges; the remesh chain's
+    clustering may pinch 1%, the JAX package's test bound), finite, its
+    intensities inside the image's range."""
+    if len(brain.peels) != n_peels:
+        raise AssertionError(f"{name}: {len(brain.peels)} peels, not {n_peels}")
+    need = 0.99 if brain.regularize == "remesh" else 1.0
+    lo, hi = float(image.min()) - 1.0, float(image.max()) + 1.0
+    shares = []
+    for k, p in enumerate(brain.peels):
+        v, f, it = p["verts"], p["faces"], p["intensity"]
+        share = _oriented_share(f, len(v))
+        shares.append(share)
+        if len(f) == 0 or not np.isfinite(v).all() or share < need:
+            raise AssertionError(f"{name} peel {k}: {len(f)} faces, oriented share {share}")
+        if it.shape != (len(v),) or not np.isfinite(it).all() or it.min() < lo or it.max() > hi:
+            raise AssertionError(f"{name} peel {k}: intensities outside [{lo}, {hi}]")
+    return (f"{[len(p['faces']) for p in brain.peels]} triangles, oriented edge share "
+            f"{min(shares):.4f}-{max(shares):.4f}")
+
+
+def _hausdorff(a: np.ndarray, b: np.ndarray) -> float:
+    from scipy.spatial import cKDTree
+
+    return float(max(cKDTree(b).query(a)[0].max(), cKDTree(a).query(b)[0].max()))
+
+
+def _fod_coefficients(lmax: int, dev) -> torch.Tensor:
+    """SH coefficients of an FOD peaked along +/-z: exp(8 (z^2 - 1))
+    projected on the basis over a 4096-direction Fibonacci sphere."""
+    from invesalius3_tpu_torch.navigation import tractography
+
+    i = np.arange(4096)
+    phi = np.pi * (3.0 - np.sqrt(5.0)) * i
+    z = 1.0 - 2.0 * (i + 0.5) / 4096
+    r = np.sqrt(1.0 - z * z)
+    dirs = torch.as_tensor(np.stack([z, r * np.sin(phi), r * np.cos(phi)], -1),
+                           dtype=torch.float32, device=dev)
+    B = tractography.sh_basis(dirs, lmax)
+    f = torch.exp(8.0 * (dirs[:, 0] ** 2 - 1.0))
+    return (B.t() @ f) * (4 * np.pi / 4096)
+
+
+def head_surfaces(image: np.ndarray, dev) -> torch.Tensor:
+    """(3, V) vertices (world mm at 1 mm) of the T1 phantom's scalp (above
+    150) and brain (above NAV_PEEL_THRESHOLD) surfaces, the surfaces that
+    navigation's ICP registers probe points to.  (The CT phantom's skull is
+    a sphere about the volume's centre, on which a rotation about the centre
+    cannot be seen.)"""
+    from invesalius3_tpu_torch.ops import marching
+
+    img = torch.as_tensor(image, device=dev)
+    return torch.cat([marching.mask_to_surface_device((img > t).to(torch.uint8) * 255).verts3v
+                      for t in (150, NAV_PEEL_THRESHOLD)], dim=1)
+
+
+def nav_fields(dev, shape, lmax: int, seed: int = 0):
+    """(FOD (Z, Y, X, C), direction field (Z, Y, X, 3), white-matter mask)
+    made on ``dev`` from a seed: a z-peaked FOD with seeded noise on its
+    coefficients, unit directions near +z with a seeded wobble, and an
+    ellipsoid filling most of the grid."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    coef = _fod_coefficients(lmax, dev)
+    fod = torch.randn(shape + (len(coef),), generator=g, device=dev) * 0.05 + coef
+    field = torch.randn(shape + (3,), generator=g, device=dev) * 0.3
+    field[..., 0] += 1.0
+    field /= torch.linalg.vector_norm(field, dim=-1, keepdim=True)
+    axes = [(torch.arange(n, dtype=torch.float32, device=dev) - (n - 1) / 2) / (0.45 * n)
+            for n in shape]
+    mask = (axes[0][:, None, None] ** 2 + axes[1][None, :, None] ** 2
+            + axes[2][None, None, :] ** 2) < 1.0
+    return fod, field, mask
+
+
+def nav_sequence(dev, n: int = 40, jfa_sizes=(64, 128), icp_targets: int = 20000) -> dict:
+    """Phase 14's sequence at small sizes on ``dev``, every result on the
+    host: the three peel modes on _mri(n), JFA at ``jfa_sizes``, ICP on a
+    small Bone surface, deterministic and probabilistic tracking (the
+    probabilistic draws made on the CPU and handed in), e-field norms and
+    the MEP field."""
+    from invesalius3_tpu_torch.navigation import efield, mep, tractography
+    from invesalius3_tpu_torch.ops import brain_peel, registration, voronoi
+
+    out = {}
+    image = _mri(n)
+    mask = np.where(image > NAV_PEEL_THRESHOLD, 255, 0).astype(np.uint8)
+    for mode in ("remesh", "volume", "none"):
+        b = brain_peel.Brain(image, mask, n_peels=3, peel_depth_mm=1.0, regularize=mode,
+                             device=dev)
+        out[f"peel {mode}"] = [(p["verts"], p["faces"], p["intensity"]) for p in b.peels]
+    rng = np.random.default_rng(1)
+    for m in jfa_sizes:
+        sites = rng.integers(0, m, (NAV_JFA_SITES, 3)).astype(np.int32)
+        owners, dist = voronoi.jump_flooding((m, m, m), sites, device=dev)
+        out[f"jfa {m}"] = (owners.cpu().numpy(), dist.cpu().numpy())
+    verts = head_surfaces(image, dev).t().cpu().numpy()
+    target = verts[rng.choice(len(verts), min(icp_targets, len(verts)), replace=False)]
+    m_true = transforms.euler_matrix(*NAV_ICP_ROTATION)
+    m_true[:3, 3] = NAV_ICP_SHIFT
+    source = (np.c_[target[:300], np.ones(300)] @ np.linalg.inv(m_true).T)[:, :3]
+    hist = []
+    m_icp, _ = registration.icp(source, target, device=dev, history=hist)
+    out["icp"] = (m_icp, hist)
+    shape = (40, 36, 32)
+    fod, field, wm = nav_fields(torch.device("cpu"), shape, NAV_LMAX)
+    seeds = (np.array(shape, np.float32) / 2
+             + rng.uniform(-4, 4, (48, 3))).astype(np.float32)
+    paths, valid = tractography.track_streamlines(field, wm, seeds, 0.5, 30, device=dev)
+    out["tracts"] = (paths.cpu().numpy(), valid.cpu().numpy())
+    draws = tractography.TrackDraws.sample(torch.Generator().manual_seed(2), 48, 30, 16,
+                                           torch.device("cpu"))
+    paths, valid = tractography.track_streamlines_probabilistic(
+        fod, wm, seeds, n_steps=30, lmax=NAV_LMAX, draws=draws, device=dev)
+    out["tracts probabilistic"] = (paths.cpu().numpy(), valid.cpu().numpy())
+    roi = rng.uniform(0, 80, (5000, 3)).astype(np.float32)
+    pos, axis = (torch.tensor(v, dtype=torch.float32, device=dev)
+                 for v in ([40.0, 30.0, 50.0], [0.0, 0.6, 0.8]))
+    out["efield"] = efield.debug_efield_norms(torch.from_numpy(roi).to(dev), pos,
+                                              axis).cpu().numpy()
+    out["mep"] = mep.interpolate_mep_surface(
+        roi, roi[:NAV_MARKERS], rng.uniform(50, 1000, NAV_MARKERS), {"gaussian_radius": 6.0},
+        device=dev)
+    return out
+
+
+def _compare_nav(got: dict, want: dict) -> list:
+    """Card against CPU: peels equal (else triangle counts within 1% and a
+    symmetric Hausdorff distance under half a millimetre, said so), JFA bit
+    for bit, ICP's matches at every iteration and its matrix within 1e-5,
+    tract validity equal and paths within NAV_PATH_ATOL, e-field and MEP
+    within a relative 1e-5.  Returns a note per comparison."""
+    notes = []
+    for mode in ("remesh", "volume", "none"):
+        g, w = got[f"peel {mode}"], want[f"peel {mode}"]
+        if len(g) != len(w):
+            raise AssertionError(f"peel {mode}: {len(g)} peels against the CPU's {len(w)}")
+        exact = all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                    for a, b in zip(g, w))
+        if exact:
+            for a, b in zip(g, w):
+                if not np.allclose(a[2], b[2], rtol=1e-6, atol=1e-3):
+                    raise AssertionError(f"peel {mode}: intensities differ from the CPU's")
+            notes.append(f"peel {mode} equal")
+            continue
+        worst = 0.0
+        for k, (a, b) in enumerate(zip(g, w)):
+            h = _hausdorff(a[0], b[0])
+            worst = max(worst, h)
+            if abs(len(a[1]) - len(b[1])) > 0.01 * len(b[1]) or h > 0.5:
+                raise AssertionError(f"peel {mode} {k}: {len(a[1])} against {len(b[1])} "
+                                     f"triangles, Hausdorff {h:.3f} mm")
+        notes.append(f"peel {mode} within bounds (Hausdorff {worst:.4f} mm)")
+    for k in [k for k in want if k.startswith("jfa")]:
+        (go, gd), (wo, wd) = got[k], want[k]
+        if not (np.array_equal(go, wo) and np.array_equal(gd, wd)):
+            raise AssertionError(f"{k}: {int((go != wo).sum())} owners differ from the CPU's, "
+                                 f"distances by up to {np.abs(gd - wd).max()}")
+        notes.append(f"{k}^3 bit for bit")
+    (gm, gh), (wm, wh) = got["icp"], want["icp"]
+    if len(gh) != len(wh) or not all(np.array_equal(a, b) for a, b in zip(gh, wh)) \
+            or np.abs(gm - wm).max() > 1e-5:
+        raise AssertionError(
+            f"icp: {len(gh)} iterations against the CPU's {len(wh)}, matches differ in "
+            f"{[int((a != b).sum()) for a, b in zip(gh, wh)]}, matrices by "
+            f"{np.abs(gm - wm).max():.2e}")
+    notes.append(f"icp: {len(wh)} iterations, same matches")
+    for k in ("tracts", "tracts probabilistic"):
+        (gp, gv), (wp, wv) = got[k], want[k]
+        if not np.array_equal(gv, wv) or np.abs(gp - wp).max() > NAV_PATH_ATOL:
+            raise AssertionError(f"{k}: validity differs in {int((gv != wv).sum())} entries, "
+                                 f"paths by up to {np.abs(gp - wp).max()}")
+        notes.append(f"{k}: {int(wv[-1].sum())} of {wv.shape[1]} alive, paths within "
+                     f"{np.abs(gp - wp).max():.2e}")
+    for k in ("efield", "mep"):
+        if not np.allclose(got[k], want[k], rtol=1e-5, atol=1e-5):
+            raise AssertionError(f"{k}: differs from the CPU's")
+    return notes
+
+
+def _session(dev, fod, wm, roi: np.ndarray, seconds: float) -> dict:
+    """``Navigation`` with the debug-approach tracker at NAV_POLL_HZ, the
+    probabilistic tract worker on ``fod`` and the e-field worker on ``roi``,
+    for ``seconds``: counts, shapes and latencies from a pose's timestamp
+    to its publication."""
+    from invesalius3_tpu_torch import events
+    from invesalius3_tpu_torch.navigation import navigation
+    from invesalius3_tpu_torch.navigation.tracker import TRACKER_DEBUG_APPROACH
+
+    bus = events.Publisher()
+    nav = navigation.Navigation(bus=bus, device=dev)
+    if not nav.tracker.connect(TRACKER_DEBUG_APPROACH, poll_hz=navigation.NAV_POLL_HZ):
+        raise AssertionError("the debug tracker did not connect")
+    while not nav.tracker.get_coordinates()[0].any():
+        time.sleep(0.01)
+    for i in range(3):
+        time.sleep(0.1)
+        nav.tracker.set_tracker_fiducial(i)
+    m_true = transforms.euler_matrix(0.05, -0.03, 0.02)
+    m_true[:3, 3] = [4.0, -3.0, 2.0]
+    trk = nav.tracker.tracker_fiducials[:, :3]
+    for i, p in enumerate((np.c_[trk, np.ones(3)] @ m_true.T)[:, :3]):
+        nav.image.set(i, p)
+    fre = nav.estimate_tracker_to_image_transform()
+    hi = np.array(fod.shape[:3]) - 1
+    nav.tract_params = {
+        "fod_sh": fod, "stop_mask": wm, "n_tracts_total": 64, "n_steps": 120,
+        "world_to_vox": lambda p: np.clip(np.asarray(p)[::-1] / NAV_FOD_MM, 0, hi)}
+    nav.efield_params = {"roi_vertices": roi, "roi_ids": np.arange(len(roi)), "debug": True}
+    seen = {"navigation.update_scene": [], "navigation.tracts": [], "navigation.efield": []}
+    shapes = {"navigation.tracts": set(), "navigation.efield": set()}
+
+    def listener(topic):
+        def on(**kw):
+            seen[topic].append(time.monotonic() - kw["timestamp"])
+            if topic == "navigation.tracts":
+                shapes[topic].add(kw["paths"].shape)
+            elif topic == "navigation.efield":
+                shapes[topic].add(kw["enorms"].shape)
+        return on
+
+    for topic in seen:
+        bus.subscribe(listener(topic), topic)
+    nav.start_navigation(poll_hz=navigation.NAV_POLL_HZ)
+    threads = [nav._coreg, nav._updater, nav._tract_thread, nav._efield_thread]
+    time.sleep(seconds)
+    nav.stop_navigation()
+    nav.tracker.disconnect()
+    if any(th.is_alive() for th in threads):
+        raise AssertionError("a navigation thread outlived stop_navigation")
+    out = {"fre": fre}
+    for topic, lat in seen.items():
+        lat_ms = np.array(lat) * 1e3
+        out[topic] = {"count": len(lat),
+                      "median_ms": float(np.median(lat_ms)) if len(lat) else None,
+                      "p95_ms": float(np.percentile(lat_ms, 95)) if len(lat) else None}
+    out["shapes"] = {k: sorted(v) for k, v in shapes.items()}
+    return out
+
+
+def navigation_phase(dev, n: int = NAV_MRI_N, jfa_n: int = NAV_JFA_N,
+                     voronoi_n: int = NAV_VORONOI_N, icp_targets: int = NAV_ICP_TARGETS,
+                     fod_shape=NAV_FOD_SHAPE, bundle=NAV_BUNDLE, roi_n: int = NAV_ROI,
+                     session_s: float = NAV_SESSION_S, small: dict = None) -> dict:
+    """Phase 14: the neuronavigation path.  The small sequence on the card
+    and the CPU first (``small`` overrides ``nav_sequence``'s sizes), then
+    every op at full width, timed; then the navigation session.  Returns
+    the per-op record and the session's counts."""
+    from invesalius3_tpu_torch.navigation import efield, mep, tractography
+    from invesalius3_tpu_torch.ops import brain_peel, registration, voronoi
+
+    log(f"[14] the neuronavigation path (peel {n}^3, JFA {jfa_n}^3, ICP "
+        f"{NAV_ICP_SOURCE} x {icp_targets}, FOD {fod_shape} lmax {NAV_LMAX}, session "
+        f"{session_s:.0f} s)")
+    if dev.type == "cuda":
+        log("  card: " + subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60).stdout.strip())
+    kernels.reset_launches()
+    rays.reset_launches()
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    got = nav_sequence(dev, **(small or {}))
+    want = nav_sequence(cpu, **(small or {}))
+    notes = _compare_nav(got, want)
+    log(f"  small sizes on {dev.type} and on the CPU ({time.perf_counter() - t_phase:.1f} s): "
+        + "; ".join(notes))
+    del got, want
+
+    log("  per op at full width (wall ms, device synchronised):")
+    ops = OpTimes(dev)
+    image = _mri(n)
+    mask = np.where(image > NAV_PEEL_THRESHOLD, 255, 0).astype(np.uint8)
+    brains = {}
+    for mode in ("remesh", "volume", "none"):
+        brains[mode] = ops(f"Brain {mode}", lambda ch, mode=mode: brain_peel.Brain(
+            image, mask, n_peels=5, peel_depth_mm=1.0, regularize=mode, device=dev))
+        log(f"      {_peel_checks(mode, brains[mode], image, 5)}; stages (s): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in brains[mode].times.items()))
+
+    rng = np.random.default_rng(3)
+    sites = rng.integers(0, jfa_n, (NAV_JFA_SITES, 3)).astype(np.int32)
+    owners, dist = ops("jump_flooding", lambda ch: voronoi.jump_flooding(
+        (jfa_n,) * 3, sites, device=dev))
+    flat = torch.as_tensor(rng.choice(jfa_n ** 3, min(10 ** 5, jfa_n ** 3), replace=False),
+                           device=dev)
+    zyx = np.stack(np.unravel_index(flat.cpu().numpy(), (jfa_n,) * 3), axis=1)
+    d2 = ((zyx[:, None, :].astype(np.int64) - sites[None].astype(np.int64)) ** 2).sum(-1)
+    order = np.sort(d2, axis=1)
+    decided = order[:, 0] != order[:, 1]
+    own = owners.reshape(-1)[flat].cpu().numpy()
+    own_d2 = d2[np.arange(len(own)), own - 1]
+    wrong = decided & (own != np.argmin(d2, axis=1) + 1)
+    excess = float((np.sqrt(own_d2) - np.sqrt(order[:, 0]))[wrong].max()) if wrong.any() else 0.0
+    # JFA is approximate (the JAX package's algorithm, which the port keeps
+    # bit for bit): a rare voxel keeps a site slightly farther than the
+    # nearest one
+    if wrong.sum() > 1e-3 * decided.sum() or excess > 1.0 or not np.array_equal(
+            dist.reshape(-1)[flat].cpu().numpy(), np.sqrt(own_d2).astype(np.float32)):
+        raise AssertionError(f"jump_flooding: {int(wrong.sum())} owners not the nearest site "
+                             f"(at most {excess:.3f} voxel farther), or a distance differs")
+    log(f"      {int(decided.sum())} strictly decided voxels of {len(own)} sampled: "
+        f"{int(wrong.sum())} owners not the exact nearest site (at most {excess:.3f} voxel "
+        "farther); every distance the owner's site's")
+    del owners, dist, flat
+    v_sites = rng.integers(0, voronoi_n, (NAV_JFA_SITES, 3)).astype(np.int32)
+    ops("jump_flooding_normalized", lambda ch: voronoi.jump_flooding_normalized(
+        (voronoi_n,) * 3, v_sites, device=dev), repeat=False)
+    for fn in (0, 1):
+        ops(f"floodfill_voronoi d{fn}", lambda ch, fn=fn: voronoi.floodfill_voronoi(
+            (voronoi_n,) * 3, v_sites, fn, device=dev))
+    _sync(dev)
+
+    surf = head_surfaces(image, dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    n_surf = surf.shape[1]
+    target = surf[:, torch.randperm(n_surf, generator=g, device=dev)[:icp_targets]].t()
+    target = target.contiguous()
+    del surf
+    pick = torch.randperm(target.shape[0], generator=g, device=dev)[:NAV_ICP_SOURCE]
+    m_true = transforms.euler_matrix(*NAV_ICP_ROTATION)
+    m_true[:3, 3] = NAV_ICP_SHIFT
+    truth = target[pick].cpu().numpy().astype(np.float64)
+    source = (np.c_[truth, np.ones(len(truth))] @ np.linalg.inv(m_true).T)[:, :3]
+    m_icp, err = ops("icp", lambda ch: registration.icp(
+        source, target, max_iterations=NAV_ICP_ITERATIONS, tolerance=0.0, device=dev))
+    moved = (np.c_[source, np.ones(len(source))] @ m_icp.T)[:, :3]
+    miss = float(np.abs(moved - truth).max())
+    if miss > 0.2:
+        raise AssertionError(f"icp: the known transform recovered within {miss:.3f} mm")
+    log(f"      {n_surf} surface vertices, {target.shape[0]} sampled; recovered within "
+        f"{miss:.4f} mm, RMS {err:.4f} mm")
+    del target
+
+    fod, field, wm = nav_fields(dev, tuple(fod_shape), NAV_LMAX)
+    centre = np.array(fod_shape, np.float32) / 2
+    pose_seeds = tractography.seed_grid(centre, 64).astype(np.float32)
+    ops("track_streamlines 64 x 120", lambda ch: tractography.track_streamlines(
+        field, wm, pose_seeds, 0.5, 120, device=dev))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    ops("probabilistic 64 x 120 x 16", lambda ch: tractography.track_streamlines_probabilistic(
+        fod, wm, pose_seeds, gen, n_steps=120, lmax=NAV_LMAX, device=dev))
+    n_seeds, n_steps, k = bundle
+    bundle_seeds = (centre + rng.uniform(-20, 20, (n_seeds, 3))).astype(np.float32)
+    paths, valid = ops(f"probabilistic bundle {n_seeds} x {n_steps} x {k}",
+                       lambda ch: tractography.track_streamlines_probabilistic(
+                           fod, wm, bundle_seeds, gen, n_steps=n_steps, k_candidates=k,
+                           lmax=NAV_LMAX, device=dev))
+    if not torch.isfinite(paths).all() or not bool(valid[0].any()):
+        raise AssertionError("the tract bundle is not finite or starts dead")
+    rate = n_seeds * n_steps / (ops.stats[f"probabilistic bundle {n_seeds} x {n_steps} x {k}"]
+                                ["ms"] / 1e3)
+    log(f"      {rate:.3e} streamline steps/s; {int(valid[-1].sum())} of {n_seeds} alive "
+        f"after {n_steps} steps")
+    del paths, valid
+
+    roi = (rng.uniform(-60, 60, (roi_n, 3)) + 120).astype(np.float32)
+    roi_d = torch.from_numpy(roi).to(dev)
+    pos = torch.tensor([120.0, 120.0, 180.0], device=dev)
+    axis = torch.tensor([0.0, 0.0, -1.0], device=dev)
+    norms = ops(f"debug_efield_norms {roi_n}", lambda ch: efield.debug_efield_norms(
+        roi_d, pos, axis))
+    if tuple(norms.shape) != (roi_n,) or not torch.isfinite(norms).all():
+        raise AssertionError("e-field norms: wrong shape or not finite")
+    peel0 = brains["remesh"].peels[0]["verts"]
+    marker_pos = peel0[rng.choice(len(peel0), NAV_MARKERS, replace=False)]
+    field_uv = ops(f"interpolate_mep_surface {len(peel0)} x {NAV_MARKERS}",
+                   lambda ch: mep.interpolate_mep_surface(
+                       peel0, marker_pos, rng.uniform(50, 1000, NAV_MARKERS), device=dev))
+    if field_uv.shape != (len(peel0),) or not np.isfinite(field_uv).all() or \
+            field_uv.max() <= 0:
+        raise AssertionError("MEP field: wrong shape, not finite or empty")
+
+    t0 = time.perf_counter()
+    sess = _session(dev, fod, wm, roi, session_s)
+    scene, tracts, ef = (sess[k] for k in ("navigation.update_scene", "navigation.tracts",
+                                           "navigation.efield"))
+    log(f"  session ({time.perf_counter() - t0:.1f} s, FRE {sess['fre']:.2e} mm): " + "; ".join(
+        f"{k.split('.')[1]} {v['count']} (pose to publish median {v['median_ms'] or 0:.3f} ms, "
+        f"p95 {v['p95_ms'] or 0:.3f} ms)" for k, v in sess.items() if k.startswith("navigation.")))
+    log(f"    shapes: {sess['shapes']}")
+    if scene["count"] < 100 or tracts["count"] < 1 or ef["count"] < 1 or \
+            sess["shapes"]["navigation.tracts"] != [(121, 64, 3)] or \
+            sess["shapes"]["navigation.efield"] != [(roi_n,)]:
+        raise AssertionError(f"session: {sess}")
+    del fod, field, wm
+
+    launches = {"sweeps": dict(kernels.LAUNCHES),
+                "rays": {k: dict(v) for k, v in rays.LAUNCHES.items()}}
+    seconds = time.perf_counter() - t_phase
+    log(f"  phase [14]: {seconds:.1f} s; kernel launches on this path: {launches} "
+        "(no kernel lies on it)")
+    if any(kernels.LAUNCHES.values()) or any(
+            v for per_axis in rays.LAUNCHES.values() for v in per_axis.values()):
+        raise AssertionError(f"a hot-path kernel launched on the navigation path: {launches}")
+    return {"ops": ops.stats, "session": sess, "seconds": seconds}
 
 
 if __name__ == "__main__":

@@ -7,6 +7,7 @@ CPU is used only when the caller passes ``device="cpu"``.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 DEFAULT_DEVICE = "cuda"
@@ -21,3 +22,13 @@ def resolve_device(device=DEFAULT_DEVICE) -> torch.device:
             f"no CUDA device for device={str(device)!r}: the port runs on the "
             "card by default; pass device='cpu' to run on the CPU")
     return dev
+
+
+def as_tensor(x, device: torch.device, dtype: torch.dtype = None) -> torch.Tensor:
+    """A tensor or a host array as a tensor on ``device``, in ``dtype`` (its
+    own when None); a read-only host array is copied first, so the tensor
+    never aliases memory it may not own."""
+    if not isinstance(x, torch.Tensor):
+        a = np.ascontiguousarray(np.asarray(x))
+        x = torch.from_numpy(a if a.flags.writeable else a.copy())
+    return x.to(device=device, dtype=dtype)

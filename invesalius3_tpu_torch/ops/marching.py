@@ -1,6 +1,7 @@
 """Isosurface extraction by marching tetrahedra (port of
 invesalius3_tpu/ops/marching.py: ``mask_to_surface_device`` and what it
-calls, plus ``mesh_to_host``).
+calls, ``mesh_to_host`` and the host variants ``marching_cubes`` and
+``mask_to_surface``).
 
 Each cube splits into six tetrahedra around its 0-6 diagonal; a tet with s
 inside corners emits min(s, 4 - s) triangles from a 16-case table, turned
@@ -23,6 +24,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from invesalius3_tpu_torch.device import DEFAULT_DEVICE, as_tensor, resolve_device
 from invesalius3_tpu_torch.ops.morphology import pad_const
 
 # Cube corners, bit i at offset CUBE_OFFSETS[i] (z, y, x)
@@ -325,10 +327,30 @@ def mask_to_surface_device(mask: torch.Tensor,
     return marching_cubes_device(vis, 0.5, spacing, origin_shift=(-sx, -sy, -sz))
 
 
-def mesh_to_host(dm: DeviceMesh) -> Tuple[np.ndarray, np.ndarray]:
-    """(verts (V, 3) float32 world mm, faces (F, 3) int32) on the host, the
-    vertices rounded through float16 on the device first, as the JAX
-    package's packed transfer does (its ulp at 256 mm is 0.125 mm)."""
-    verts = dm.verts3v.to(torch.float16).to(torch.float32).t().contiguous()
+def mesh_to_host(dm: DeviceMesh, fp16: bool = True) -> Tuple[np.ndarray, np.ndarray]:
+    """(verts (V, 3) float32 world mm, faces (F, 3) int32) on the host.
+    With ``fp16`` the vertices are rounded through float16 on the device
+    first, as the JAX package's packed transfer does (its ulp at 256 mm is
+    0.125 mm); without it they keep their float32 values."""
+    v = dm.verts3v.to(torch.float16).to(torch.float32) if fp16 else dm.verts3v
+    verts = v.t().contiguous()
     faces = dm.faces3t.t().contiguous()
     return verts.cpu().numpy(), faces.cpu().numpy()
+
+
+def marching_cubes(field, iso: float,
+                   spacing: Tuple[float, float, float] = (1.0, 1.0, 1.0),
+                   device=DEFAULT_DEVICE) -> Tuple[np.ndarray, np.ndarray]:
+    """Host-array variant of ``marching_cubes_device`` on ``device`` (the
+    card unless the caller passes "cpu"): (vertices (V, 3) float32 world mm
+    (x, y, z), faces (F, 3) int32), the vertices not rounded."""
+    dm = marching_cubes_device(as_tensor(field, resolve_device(device)), iso, spacing)
+    return mesh_to_host(dm, fp16=False)
+
+
+def mask_to_surface(mask, spacing: Tuple[float, float, float] = (1.0, 1.0, 1.0),
+                    device=DEFAULT_DEVICE) -> Tuple[np.ndarray, np.ndarray]:
+    """Host-array variant of ``mask_to_surface_device`` on ``device``, the
+    vertices not rounded."""
+    dm = mask_to_surface_device(as_tensor(mask, resolve_device(device)), spacing)
+    return mesh_to_host(dm, fp16=False)

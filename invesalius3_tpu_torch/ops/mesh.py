@@ -590,3 +590,100 @@ def nearest_vertex(verts: np.ndarray, points: np.ndarray) -> np.ndarray:
     for i, p in enumerate(points):
         out[i] = int(np.argmin(((v - p) ** 2).sum(axis=1)))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Remesh utilities of the brain-peel chain (reference brainmesh_handler.py
+# downsample / upsample / warp helpers :418-500).  Host numpy, as in the
+# JAX package, with its casts and its np.unique / np.add.at orders, so the
+# two agree bit for bit on equal inputs.
+# ---------------------------------------------------------------------------
+
+
+def vertex_normals(verts: np.ndarray, faces: np.ndarray) -> np.ndarray:
+    """Area-weighted vertex normals, normalized (the quantity
+    vtkPolyDataNormals feeds vtkWarpVector in reference SliceDown
+    brainmesh_handler.py:200-210); float32."""
+    v = np.asarray(verts, np.float64)
+    f = np.asarray(faces)
+    fn = np.cross(v[f[:, 1]] - v[f[:, 0]], v[f[:, 2]] - v[f[:, 0]])
+    vn = np.zeros_like(v)
+    for c in range(3):
+        np.add.at(vn, f[:, c], fn)
+    norm = np.linalg.norm(vn, axis=1, keepdims=True)
+    return (vn / np.maximum(norm, 1e-12)).astype(np.float32)
+
+
+def cluster_remesh(verts: np.ndarray, faces: np.ndarray,
+                   n_clusters: int = 3000) -> Tuple[np.ndarray, np.ndarray]:
+    """Uniform vertex-clustering remesh, the stand-in for the reference's
+    pyacvd ``Clustering(...).cluster(3000)`` (brainmesh_handler.py:466).
+    The grid spans the vertices' bounding box; its resolution is
+    binary-searched so that about ``n_clusters`` cells are occupied.  A
+    new vertex is its cluster's mean; degenerate faces and duplicates (in
+    any rotation) drop."""
+    v = np.asarray(verts, np.float32)
+    f = np.asarray(faces, np.int64)
+    lo = v.min(axis=0)
+    span = np.maximum(v.max(axis=0) - lo, 1e-6)
+    res_lo, res_hi = 2, 256
+    best = None
+    for _ in range(10):
+        res = (res_lo + res_hi) // 2
+        cell = np.floor((v - lo) / span * (res - 1e-4)).astype(np.int64)
+        key = (cell[:, 0] * res + cell[:, 1]) * res + cell[:, 2]
+        uniq, inverse = np.unique(key, return_inverse=True)
+        if best is None or abs(len(uniq) - n_clusters) < abs(best[0] - n_clusters):
+            best = (len(uniq), inverse)
+        if len(uniq) < n_clusters:
+            res_lo = res + 1
+        else:
+            res_hi = res - 1
+        if res_lo > res_hi:
+            break
+    n_new, inverse = best
+    sums = np.zeros((n_new, 3), np.float64)
+    np.add.at(sums, inverse, v)
+    counts = np.bincount(inverse, minlength=n_new)
+    new_v = (sums / counts[:, None]).astype(np.float32)
+    nf = inverse[f]
+    keep = ((nf[:, 0] != nf[:, 1]) & (nf[:, 1] != nf[:, 2])
+            & (nf[:, 0] != nf[:, 2]))
+    nf = nf[keep]
+    sf = np.sort(nf, axis=1)
+    _, first = np.unique((sf[:, 0] * n_new + sf[:, 1]) * n_new + sf[:, 2],
+                         return_index=True)
+    return new_v, nf[np.sort(first)].astype(np.int32)
+
+
+def subdivide_linear(verts: np.ndarray, faces: np.ndarray,
+                     n_subdivisions: int = 1) -> Tuple[np.ndarray, np.ndarray]:
+    """Midpoint (linear) subdivision, vtkLinearSubdivisionFilter (reference
+    brainmesh_handler.py:438 upsample): each pass splits a triangle in four,
+    shared edge midpoints deduplicated by their sorted-edge key."""
+    v = np.asarray(verts, np.float64)
+    f = np.asarray(faces, np.int64)
+    for _ in range(n_subdivisions):
+        V = len(v)
+        e = np.concatenate([f[:, [0, 1]], f[:, [1, 2]], f[:, [2, 0]]])
+        ek = np.sort(e, axis=1)
+        uniq, inv = np.unique(ek[:, 0] * V + ek[:, 1], return_inverse=True)
+        mids = (v[uniq // V] + v[uniq % V]) * 0.5
+        m = inv.reshape(3, -1).T + V  # midpoint ids per face: 01, 12, 20
+        v = np.concatenate([v, mids])
+        f = np.concatenate([
+            np.stack([f[:, 0], m[:, 0], m[:, 2]], 1),
+            np.stack([m[:, 0], f[:, 1], m[:, 1]], 1),
+            np.stack([m[:, 2], m[:, 1], f[:, 2]], 1),
+            m,
+        ])
+    return v.astype(np.float32), f.astype(np.int32)
+
+
+def warp_along_normals(verts: np.ndarray, faces: np.ndarray,
+                       distance: float) -> np.ndarray:
+    """Every vertex moved ``distance`` along its normal: vtkWarpVector with
+    SetScaleFactor (reference SliceDown warps by -1 to peel inward,
+    brainmesh_handler.py:202-210)."""
+    return (np.asarray(verts, np.float32)
+            + np.float32(distance) * vertex_normals(verts, faces))
