@@ -176,6 +176,26 @@ Phases, each fatal on failure (no phase catches an error):
    tract and an e-field message of the expected shapes, with the counts and
    the median and p95 latency from a pose's timestamp to its publication.
    No kernel lies on this path (the counts must stay 0).
+15. drives the viewer server (``viewer_server_phase``): the port's
+   ``ViewerServer`` over ``make_ct(512)`` on the card (int16, 0.5 mm), over
+   HTTP on 127.0.0.1 as the web client drives it: the page (the port's
+   ``index.html`` byte for byte), the status and window, frames in three
+   orientations (Normal, and MaxIP, LMIP, MIDA at slab 64) each equal to
+   ``Slice.get_rendered_slice`` called directly (MIDA within 2 levels),
+   the Bone threshold (its voxel count the direct threshold's), a
+   floodfill, a brush stroke and the mask statistics, the watershed from
+   the bench's three markers (its mask the direct ``watershed``'s), the
+   ca_smoothing surface (its STL bytes the direct surface's), the Bone
+   render at 512 and the scene, linear, angular and density measures, a
+   pick, the histogram (its counts numpy's on the same edges), a navigation
+   round with the pedal and mTMS, a trachea DL job (its mask the direct
+   segmenter's, same seeded weights), the language round trip, events and
+   log, and the PACS refusal (501).  Each endpoint's wall ms (a GET the
+   median of 5, the STL and the scene once, a POST as sent), the peak
+   memory and the launch counts below the server (oracle calls
+   uncounted), beside the card's name and power limit; the sweep and ray
+   counts must be above 0, and the shear-cache warm-up must log no
+   failure.
 
 It prints the card's name and power limit first, a JSON line of the
 kernels before the last line, and as the last line
@@ -439,6 +459,9 @@ def main() -> int:
         study_importers(dev, Path(d))
     torch.cuda.empty_cache()
     navigation_phase(dev)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_server_") as d:
+        viewer_server_phase(dev, Path(d))
 
     entries = [
         {"name": f"watershed_sweep[axis={axis}]", "route": "cuda",
@@ -2868,7 +2891,7 @@ def _session(dev, fod, wm, roi: np.ndarray, seconds: float) -> dict:
 
     bus = events.Publisher()
     nav = navigation.Navigation(bus=bus, device=dev)
-    if not nav.tracker.connect(TRACKER_DEBUG_APPROACH, poll_hz=navigation.NAV_POLL_HZ):
+    if not nav.tracker.connect(TRACKER_DEBUG_APPROACH, poll_hz=const.NAV_POLL_HZ):
         raise AssertionError("the debug tracker did not connect")
     while not nav.tracker.get_coordinates()[0].any():
         time.sleep(0.01)
@@ -2900,7 +2923,7 @@ def _session(dev, fod, wm, roi: np.ndarray, seconds: float) -> dict:
 
     for topic in seen:
         bus.subscribe(listener(topic), topic)
-    nav.start_navigation(poll_hz=navigation.NAV_POLL_HZ)
+    nav.start_navigation(poll_hz=const.NAV_POLL_HZ)
     threads = [nav._coreg, nav._updater, nav._tract_thread, nav._efield_thread]
     time.sleep(seconds)
     nav.stop_navigation()
@@ -3073,6 +3096,341 @@ def navigation_phase(dev, n: int = NAV_MRI_N, jfa_n: int = NAV_JFA_N,
             v for per_axis in rays.LAUNCHES.values() for v in per_axis.values()):
         raise AssertionError(f"a hot-path kernel launched on the navigation path: {launches}")
     return {"ops": ops.stats, "session": sess, "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the viewer server
+# ---------------------------------------------------------------------------
+
+SERVER_N = 512  # make_ct(512), int16 at 0.5 mm: 256 MiB on the card
+SERVER_REPS = 5  # each GET's wall time is the median of this many
+# the projection types phase 15 drives, and their RGB tolerance against the
+# direct frame (tests/test_torch_slab_viewer.py:7-8: MIDA within 1 on the
+# plane, at most 2 levels at WW 400; the others exact)
+SERVER_FRAMES = {const.PROJECTION_NORMAL: 0, const.PROJECTION_MaxIP: 0,
+                 const.PROJECTION_LMIP: 0, const.PROJECTION_MIDA: 2}
+
+
+class _Client:
+    """The phase's HTTP client: every call's wall ms, by endpoint (a GET
+    called ``reps`` times in a row; a POST each time it is sent)."""
+
+    def __init__(self, port: int, reps: int):
+        self.base = f"http://127.0.0.1:{port}"
+        self.reps = reps
+        self.calls = {}
+
+    @property
+    def ms(self) -> dict:
+        """Endpoint -> (median wall ms, calls)."""
+        return {k: (float(np.median(v)), len(v)) for k, v in self.calls.items()}
+
+    def _open(self, req):
+        import urllib.request
+
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as r:
+            out = (r.status, r.headers.get("Content-Type"), r.read())
+        return (time.perf_counter() - t0) * 1e3, out
+
+    def get(self, path: str, reps: int = None, name: str = None):
+        """GET ``path``; its wall ms is the median of ``reps`` calls."""
+        out = None
+        for _ in range(reps or self.reps):
+            ms, out = self._open(self.base + path)
+            self.calls.setdefault(name or "GET " + path, []).append(ms)
+        return out
+
+    def post(self, path: str, body: dict, name: str = None):
+        import urllib.request
+
+        req = urllib.request.Request(self.base + path, data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        ms, (code, _, data) = self._open(req)
+        self.calls.setdefault(name or "POST " + path, []).append(ms)
+        return code, json.loads(data)
+
+    def refused(self, path: str, body: dict):
+        import urllib.error
+        import urllib.request
+
+        req = urllib.request.Request(self.base + path, data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        try:
+            urllib.request.urlopen(req, timeout=60)
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+        raise AssertionError(f"{path} answered")
+
+
+class _Uncounted:
+    """Calls made to check the server (direct oracles) launch kernels too;
+    the launch counts are put back as they were after such a call, so the
+    counts read at the end are the server's alone."""
+
+    def __enter__(self):
+        self.saved = (dict(kernels.LAUNCHES), {k: dict(v) for k, v in rays.LAUNCHES.items()})
+
+    def __exit__(self, *exc):
+        kernels.LAUNCHES.update(self.saved[0])
+        for k, v in self.saved[1].items():
+            rays.LAUNCHES[k].update(v)
+        return False
+
+
+def _png_rgb(data: bytes) -> np.ndarray:
+    import io
+
+    from PIL import Image
+
+    return np.asarray(Image.open(io.BytesIO(data)))
+
+
+def _ok(code, out, what: str):
+    if code != 200:
+        raise AssertionError(f"{what}: HTTP {code} {out}")
+    return out
+
+
+def _host_histogram(ct: np.ndarray, edges) -> np.ndarray:
+    """numpy's histogram of an int16 volume on explicit float32 edges (the
+    bin whose left edge is the last one <= the value, the last edge in the
+    last bin), by value: each of the 65536 values binned once."""
+    e = np.asarray(edges, np.float32)
+    per_value = np.bincount((ct.astype(np.int32) + 32768).ravel(), minlength=65536)
+    values = (np.arange(65536) - 32768).astype(np.float32)
+    idx = np.searchsorted(e, values, side="right")
+    idx[values == e[-1]] = len(e) - 1
+    keep = (idx >= 1) & (idx <= len(e) - 1) & (per_value > 0)
+    return np.bincount(idx[keep] - 1, weights=per_value[keep],
+                       minlength=len(e) - 1).astype(np.int64)
+
+
+def viewer_server_phase(dev, tmp: Path, n: int = SERVER_N, reps: int = SERVER_REPS) -> dict:
+    """Phase 15: the port's ViewerServer over make_ct(n) on ``dev``, driven
+    over HTTP as the web client drives it; each result held to the direct
+    call on the same device.  The STL (300 MB at 512^3) and the scene (its
+    renderer decimates a surface above 200k triangles by QEM on every
+    call, about a minute at 512^3, as the JAX renderer does) are fetched
+    once.  Returns the wall ms per
+    endpoint, the launch counts and the peak memory."""
+    import os
+
+    from invesalius3_tpu_torch import server as server_mod
+    from invesalius3_tpu_torch.models import segment as seg_mod
+    from invesalius3_tpu_torch.utils import logging as ilog
+
+    log(f"[15] the viewer server at {n}^3")
+    card = "cpu"
+    if dev.type == "cuda":
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    log(f"  card: {card}")
+    os.environ["XDG_CONFIG_HOME"] = str(tmp / "config")  # session, presets, language
+    os.environ.pop("INV3_LANGUAGE", None)
+    download.download_url_to_file = _no_download
+    t_phase = time.perf_counter()
+    ct = pipeline.make_ct(n)
+    slc = Slice(Volume.from_numpy(ct, spacing=pipeline.SPACING, device=dev))
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    rays.reset_launches()
+    srv = server_mod.ViewerServer(slc).start()
+    cl = _Client(srv.port, reps)
+    try:
+        # 1-2: the page, the status and the window
+        _, ctype, page = cl.get("/")
+        if page != (server_mod.VIEWER_ROOT / "index.html").read_bytes() or "html" not in ctype:
+            raise AssertionError("GET / is not the port's index.html")
+        st = json.loads(cl.get("/api/status")[2])
+        if st["volume_shape"] != [n, n, n]:
+            raise AssertionError(f"status: {st}")
+        _ok(*cl.post("/api/window", {"ww": 400.0, "wl": 40.0}), "window")
+
+        # 3: frames, each against the direct frame on the same device
+        mid = n // 2
+        slab = max(1, n // 8)
+        for o in ORIENTATIONS:
+            for p, atol in SERVER_FRAMES.items():
+                q = "" if p == const.PROJECTION_NORMAL else f"?projection={p}&slabs={slab}"
+                name = f"GET /api/slice/{o}/{mid} {const.PROJECTION_NAMES[p]}"
+                got = _png_rgb(cl.get(f"/api/slice/{o}/{mid}{q}", name=name)[2])
+                with _Uncounted():
+                    want = slc.get_rendered_slice(
+                        o, mid, projection=None if p == const.PROJECTION_NORMAL else p,
+                        slabs=None if p == const.PROJECTION_NORMAL else slab,
+                        measures=srv.state.measures)
+                d = int(np.abs(got.astype(int) - want.astype(int)).max())
+                if got.shape != want.shape or d > atol:
+                    raise AssertionError(f"{name}: the server's frame differs by {d}")
+
+        # 4: threshold
+        lo, hi = const.THRESHOLD_PRESETS_CT["Bone"]
+        out = _ok(*cl.post("/api/threshold", {"tmin": lo, "tmax": hi}), "threshold")
+        with _Uncounted():
+            want = int((thr_ops.threshold_new_mask(slc.matrix, lo, hi) >= 127).sum())
+        if out["voxels"] != want or want == 0:
+            raise AssertionError(f"threshold: {out['voxels']} voxels, direct {want}")
+
+        # 5: floodfill (threshold method) from a bone voxel, a brush stroke, stats
+        seed = [int(v) for v in np.unravel_index(
+            int(torch.argmax(slc.current_mask.data.reshape(-1).to(torch.int16))), (n,) * 3)]
+        out = _ok(*cl.post("/api/floodfill", {"seed": seed, "tmin": lo, "tmax": hi}),
+                  "floodfill")
+        if out["voxels"] <= 0:
+            raise AssertionError(f"floodfill: {out}")
+        stroke = [[mid, mid, x] for x in range(mid - 40, mid + 40, 4)]
+        out = _ok(*cl.post("/api/brush", {"strokes": stroke, "radius_mm": 3.0}), "brush")
+        if out["stamps"] != len(stroke):
+            raise AssertionError(f"brush: {out}")
+        stats = _ok(*cl.post("/api/mask/stats", {}), "mask stats")
+        if stats["voxels"] != out["voxels"] or not stats["area_mm2"] > 0:
+            raise AssertionError(f"mask stats: {stats}")
+
+        # 6: watershed from three markers (the sweep kernels)
+        marks = np.argwhere(pipeline.bench_markers(n))
+        labels_at = pipeline.bench_markers(n)[tuple(marks.T)]
+        body = {"markers": [{"position": [int(c) for c in m], "label": int(lb)}
+                            for m, lb in zip(marks, labels_at)]}
+        out = _ok(*cl.post("/api/watershed", body), "watershed")
+        with _Uncounted():
+            ref = watershed.watershed(slc.matrix, torch.from_numpy(
+                pipeline.bench_markers(n)).to(dev), algorithm="Watershed")
+            same = bool(torch.equal((ref == 1).to(torch.uint8) * 253,
+                                    slc.current_mask.data))
+            n_ref = int((ref == 1).sum())
+            del ref
+        if not same or out["voxels"] != n_ref:
+            raise AssertionError(f"watershed: {out['voxels']} voxels, direct {n_ref}, "
+                                 f"mask equal {same}")
+
+        # 7: the surface (context-aware smoothing) and its STL
+        surf = _ok(*cl.post("/api/surface", {"algorithm": "ca_smoothing"}), "surface")
+        stl = cl.get(f"/api/surface/{surf['index']}.stl", reps=1,
+                     name="GET /api/surface/{i}.stl")[2]
+        with _Uncounted():
+            direct = create_surface_from_mask(slc.current_mask, slc.spacing,
+                                              algorithm="ca_smoothing")
+            direct.export(str(tmp / "direct.stl"))
+        if stl != (tmp / "direct.stl").read_bytes():
+            raise AssertionError("surface: the server's STL differs from the direct one")
+        log(f"  surface: {surf['triangles']} triangles, STL {len(stl)} bytes (equal)")
+        del stl, direct
+
+        # 8: volume render and the surface scene
+        img = _png_rgb(cl.get("/api/render?preset=Bone&size=512")[2])
+        scene = _png_rgb(cl.get("/api/render_scene?size=256", reps=1)[2])
+        if img.shape != (512, 512, 3) or scene.shape != (256, 256, 3) or img.max() == 0 \
+                or len(np.unique(scene.reshape(-1, 3), axis=0)) < 2:
+            raise AssertionError("render: empty frames")
+
+        # 9: measures, a pick, the histogram
+        for body in ({"kind": "linear", "p1": [10.0, 20.0, 30.0], "p2": [100.0, 120.0, 30.0]},
+                     {"kind": "angular", "p0": [1, 0, 0], "p1": [0, 0, 0], "p2": [0, 1, 0]},
+                     {"kind": "density_ellipse", "location": "AXIAL", "slice_number": mid,
+                      "center": [mid, mid], "ry": n / 8, "rx": n / 6}):
+            dens = _ok(*cl.post("/api/measures", body,
+                                name=f"POST /api/measures {body['kind']}"), body["kind"])
+        plane = slc.matrix[mid].cpu().numpy()
+        yy, xx = np.mgrid[:n, :n]
+        inside = ((yy - mid) / (n / 8)) ** 2 + ((xx - mid) / (n / 6)) ** 2 <= 1.0
+        if abs(dens["value"] - float(plane[inside].mean())) > 1e-6 * max(1.0, abs(dens["value"])):
+            raise AssertionError(f"density: {dens['value']}")
+        c = n * float(pipeline.SPACING[0]) / 2
+        hit = _ok(*cl.post("/api/surface/pick", {"origin": [c, c, 10 * c],
+                                                 "dir": [0.0, 0.0, -1.0]}), "pick")
+        if not hit["hit"]:
+            raise AssertionError(f"pick: {hit}")
+        h = json.loads(cl.get("/api/histogram?bins=128")[2])
+        if not np.array_equal(np.asarray(h["counts"]), _host_histogram(ct, h["edges"])) \
+                or sum(h["counts"]) != n ** 3:
+            raise AssertionError("histogram: counts differ from numpy's on the same edges")
+
+        # 10: a navigation round with the pedal and mTMS
+        _ok(*cl.post("/api/nav/connect", {"tracker_id": "debug_random", "poll_hz": 200}),
+            "nav connect")
+        time.sleep(0.05)
+        for i in range(3):
+            cl.post("/api/nav/fiducial/tracker", {"index": i})
+            time.sleep(0.02)
+            cl.post("/api/nav/fiducial/image", {"index": i, "position": [i * 10.0, 0.0, 5.0]})
+        _ok(*cl.post("/api/nav/register", {}), "register")
+        _ok(*cl.post("/api/nav/start", {"poll_hz": 100}), "nav start")
+        deadline, pedal = time.monotonic() + 10, {}
+        while "marker_id" not in pedal and time.monotonic() < deadline:
+            time.sleep(0.05)
+            pedal = _ok(*cl.post("/api/pedal", {"pressed": True}, name="POST /api/pedal"),
+                        "pedal")
+        if "marker_id" not in pedal:
+            raise AssertionError("pedal: no marker dropped while navigating")
+        pp = tmp / "pulses.txt"
+        pp.write_text("\n".join([f"# header {i}" for i in range(18)] + [
+            f"{x}_{y}_0\tc1\tc2" for x in range(-3, 4) for y in range(-3, 4)]) + "\n")
+        if _ok(*cl.post("/api/nav/mtms/load", {"path": str(pp)}), "mtms")["n_keys"] != 49:
+            raise AssertionError("mtms: parameter table")
+        tgt = _ok(*cl.post("/api/nav/mtms/target", {
+            "coil_pose": [10.0, 20.0, 30.0, 0, 0, 0],
+            "brain_target": [11.0, 22.0, 30.0, 0, 0, 0]}), "mtms target")
+        if not tgt["fired"]:
+            raise AssertionError(f"mtms: {tgt}")
+        _ok(*cl.post("/api/nav/stop", {}), "nav stop")
+        _ok(*cl.post("/api/nav/disconnect", {}), "nav disconnect")
+
+        # 11: a DL job (the trachea CT model, seeded random weights)
+        _ok(*cl.post("/api/segment/dl", {"model": "trachea", "allow_random_init": True,
+                                         "batch_size": 4}), "dl start")
+        t0, st = time.perf_counter(), {}
+        while not st.get("done"):
+            time.sleep(0.2)
+            st = _ok(*cl.post("/api/segment/dl/status", {},
+                              name="POST /api/segment/dl/status"), "dl status")
+        cl.calls["DL job, start to landed mask"] = [(time.perf_counter() - t0) * 1e3]
+        if st["error"] is not None or "mask_index" not in st:
+            raise AssertionError(f"dl job: {st}")
+        with _Uncounted():
+            _, mask = seg_mod.TracheaSegmenter(allow_random_init=True, device=dev).segment(
+                slc.matrix, 0.5, 4)
+        landed = slc.masks[st["mask_index"]].data.cpu().numpy()
+        if not np.array_equal(landed, (mask > 0).astype(np.uint8) * 255):
+            raise AssertionError("dl job: the landed mask differs from the direct one")
+
+        # 12: language, events, log; 13: PACS refused
+        cat = _ok(*cl.post("/api/i18n", {"language": "pt_BR"}), "i18n")
+        back = _ok(*cl.post("/api/i18n", {"language": "en"}), "i18n back")
+        if cat["current"] != "pt_BR" or back["current"] != "en" or not cat["catalog"]:
+            raise AssertionError("i18n round trip")
+        evs = json.loads(cl.get("/api/events")[2])
+        logs = json.loads(cl.get("/api/log")[2])
+        if not evs or "/api/watershed" not in [e["message"] for e in logs]:
+            raise AssertionError("events / log")
+        code, body = cl.refused("/api/pacs/echo", {"host": "127.0.0.1", "port": 1})
+        if code != 501 or "net/dicom_net.py" not in body["error"]:
+            raise AssertionError(f"pacs: {code} {body}")
+    finally:
+        srv.stop()
+    thread = getattr(srv.state, "warm_thread", None)
+    if thread is not None:
+        thread.join()
+    warm_fail = ilog.query_log(search="warm-up failed")
+    if warm_fail:
+        raise AssertionError(f"the shear-cache warm-up failed: {warm_fail}")
+    launches = {"sweeps": dict(kernels.LAUNCHES),
+                "rays": {k: dict(v) for k, v in rays.LAUNCHES.items()}}
+    peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else 0.0
+    seconds = time.perf_counter() - t_phase
+    log(f"  wall ms per endpoint, the median of its calls ({card}; a GET {reps} calls, "
+        "the STL and the scene one; a POST once unless repeated):")
+    for k, (v, calls) in cl.ms.items():
+        log(f"    {k}: {v:.3f}" + (f" ({calls} calls)" if calls > 1 else ""))
+    log(f"  launches by the server: {launches}; peak device memory {peak:.2f} GiB; "
+        f"phase [15]: {seconds:.1f} s ({card})")
+    if dev.type == "cuda" and (min(launches["sweeps"].values()) <= 0 or any(
+            launches["rays"][k][a] <= 0 for k in RAY_FNS for a in (0, 1, 2))):
+        raise AssertionError(f"a kernel never launched below the server: {launches}")
+    return {"ms": cl.ms, "launches": launches, "peak_gib": peak, "seconds": seconds}
 
 
 if __name__ == "__main__":

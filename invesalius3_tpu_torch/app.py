@@ -30,14 +30,21 @@ The batch flags of the reference's command line (reference app.py:391-518):
                        exported to OUT; needs the cranioplasty_jit_ct_binary
                        checkpoint under the models dir
 
---serve, --shell, --remote-host and --use-pedal need modules the port does
-not have yet: each exits with a message naming the missing module.
+  --serve PORT         after the batch steps, serve the web viewer on PORT
+                       (0: a free one) and block until interrupted
+  --shell              after the batch steps (or beside --serve), an
+                       interactive Python shell with the app's objects
+  --use-pedal          connect a MIDI pedal (needs the mido package)
+
+--remote-host needs net/remote_control.py, which the port does not have
+yet: it exits with a message naming it.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
+import threading
 from pathlib import Path
 
 from invesalius3_tpu_torch import constants as const, events
@@ -50,10 +57,7 @@ from invesalius3_tpu_torch.utils.i18n import tr
 
 # flags whose module is still to port: (argparse dest, what they need)
 _NOT_PORTED = {
-    "serve": "--serve needs server.py",
-    "shell": "--shell needs the port's ops namespace (app.run_shell)",
     "remote_host": "--remote-host needs net/remote_control.py",
-    "use_pedal": "--use-pedal needs net/pedal_connection.py",
 }
 
 
@@ -187,10 +191,13 @@ def parse_threshold(spec: str, modality: str = "CT"):
 
 
 def _report(verb: str, path, surf) -> None:
-    print(tr("{verb} {path}: {tris} triangles, volume={vol} mm^3, "
-             "area={area} mm^2").format(
-        verb=verb, path=path, tris=len(surf.faces), vol=f"{surf.volume:.1f}",
-        area=f"{surf.area:.1f}"), file=sys.stderr)
+    """The imported / exported surface's line, in the catalog's wording."""
+    msg = (tr("imported {path}: {tris} triangles, volume={vol} mm^3, "
+              "area={area} mm^2") if verb == "imported" else
+           tr("exported {path}: {tris} triangles, volume={vol} mm^3, "
+              "area={area} mm^2"))
+    print(msg.format(path=path, tris=len(surf.faces), vol=f"{surf.volume:.1f}",
+                     area=f"{surf.area:.1f}"), file=sys.stderr)
 
 
 def main(argv=None, device=DEFAULT_DEVICE) -> int:
@@ -210,12 +217,17 @@ def main(argv=None, device=DEFAULT_DEVICE) -> int:
     backup = session.recover_auto_backup()
     if backup is not None:  # the reference's CheckCrashRecovery (app.py:287-366)
         print(tr("previous session did not exit cleanly; auto-backup at "
-                 "{path} (open with --import-file)").format(path=backup),
+                 "{path} (open with --import-file or POST "
+                 "/api/session/recover)").format(path=backup),
               file=sys.stderr)
     session.mark_running()
     if args.debug_efield:
         session.set_config("debug_efield", True)
     try:
+        if args.use_pedal:
+            from invesalius3_tpu_torch.net.pedal_connection import PedalConnector
+
+            PedalConnector(use_midi=True)
         from invesalius3_tpu_torch.core.surface import import_surface_file
 
         if args.cranioplasty:
@@ -223,7 +235,7 @@ def main(argv=None, device=DEFAULT_DEVICE) -> int:
         if args.import_surface and not args.other_file:
             # standalone mesh flow: import (+hole-fill), report, re-export
             surf = import_surface_file(args.import_surface, device=device)
-            _report(tr("imported"), args.import_surface, surf)
+            _report("imported", args.import_surface, surf)
             if surf.filled_holes:
                 print(tr("filled {n} holes").format(n=surf.filled_holes),
                       file=sys.stderr)
@@ -261,7 +273,7 @@ def main(argv=None, device=DEFAULT_DEVICE) -> int:
         if args.import_surface:
             surf = import_surface_file(args.import_surface, device=device)
             project.add_surface(surf)
-            _report(tr("imported"), args.import_surface, surf)
+            _report("imported", args.import_surface, surf)
 
         if args.export_surface:
             if not slc.current_mask:
@@ -270,7 +282,7 @@ def main(argv=None, device=DEFAULT_DEVICE) -> int:
                 quality=args.quality, algorithm=args.algorithm)
             project.add_surface(surf)
             surf.export(args.export_surface)
-            _report(tr("exported"), args.export_surface, surf)
+            _report("exported", args.export_surface, surf)
 
         if args.export_all:
             base = Path(args.export_all)
@@ -305,9 +317,64 @@ def main(argv=None, device=DEFAULT_DEVICE) -> int:
             else:
                 project.export_to_nifti(out)
             print(tr("exported project to {path}").format(path=out), file=sys.stderr)
+
+        if args.serve is not None:
+            from invesalius3_tpu_torch.server import ViewerServer
+
+            srv = ViewerServer(slc, port=args.serve).start()
+            print(tr("viewer server on {url}").format(
+                url=f"http://127.0.0.1:{srv.port}"), file=sys.stderr)
+            try:
+                if args.shell:
+                    run_shell(slc, project, session, volume, server=srv)
+                else:
+                    serve_until_interrupted(srv)
+            finally:
+                srv.stop()
+        elif args.shell:
+            run_shell(slc, project, session, volume)
         return 0
     finally:
         session.exit()
+
+
+# set to stop a blocking --serve from another thread (tests, embedding)
+SERVE_STOP = threading.Event()
+
+
+def serve_until_interrupted(srv) -> None:
+    """Block while ``srv`` serves, until Ctrl-C or ``SERVE_STOP`` is set."""
+    try:
+        while not SERVE_STOP.wait(1.0):
+            pass
+    except KeyboardInterrupt:
+        pass
+
+
+def run_shell(slc, project, session, volume, server=None) -> None:
+    """Interactive Python console with the live app context (the headless
+    analog of the reference's embedded shell, gui/interactive_shell.py:121):
+    everything a panel could do is reachable through ``slc``, ``project``
+    and ``events``; ``ops`` is the port's ops package and ``torch`` and
+    ``np`` are bound."""
+    import code
+
+    import numpy as np
+    import torch
+
+    import invesalius3_tpu_torch.ops as ops
+
+    ns = {
+        "np": np, "torch": torch, "ops": ops, "const": const, "events": events,
+        "slc": slc, "project": project, "session": session, "volume": volume,
+    }
+    if server is not None:
+        ns["server"] = server
+    banner = tr(
+        "invesalius3_tpu_torch shell — objects: {names}\n"
+        "e.g. slc.create_new_mask(threshold_range=(226, 3071))").format(
+        names=", ".join(sorted(ns)))
+    code.interact(banner=banner, local=ns, exitmsg="")
 
 
 def run_cranioplasty(input_path, output_path, device=DEFAULT_DEVICE) -> int:

@@ -136,3 +136,16 @@ INTERP_NEAREST = 0
 INTERP_TRILINEAR = 1
 INTERP_TRICUBIC = 2
 INTERP_LANCZOS = 3
+
+# Watershed algorithms (reference watershed_process.py:19-61)
+WATERSHED = "Watershed"
+WATERSHED_IFT = "Watershed (IFT)"
+
+# Deep-learning patch defaults (reference segment.py:27,74)
+DL_PATCH_SIZE = 48
+DL_PATCH_OVERLAP = 0.5
+
+# Navigation loop pacing (reference navigation.py:146-152, coregistration.py:363)
+NAV_POLL_HZ = 120.0
+NAV_RENDER_MAX_HZ = 100.0
+NAV_SLICE_RENDER_MAX_HZ = 10.0

@@ -27,6 +27,8 @@ from typing import Callable, Dict, Optional
 import numpy as np
 
 from invesalius3_tpu_torch import events
+from invesalius3_tpu_torch.constants import (NAV_POLL_HZ, NAV_RENDER_MAX_HZ,
+                                             NAV_SLICE_RENDER_MAX_HZ)
 from invesalius3_tpu_torch.device import DEFAULT_DEVICE
 from invesalius3_tpu_torch.navigation.coregistration import (
     CoordinateCorregistrate,
@@ -36,13 +38,6 @@ from invesalius3_tpu_torch.navigation.coregistration import (
 from invesalius3_tpu_torch.navigation.markers import MarkersControl
 from invesalius3_tpu_torch.navigation.tracker import Tracker
 from invesalius3_tpu_torch.ops import registration
-
-
-# Navigation loop pacing (reference navigation.py:146-152, coregistration.py:363;
-# the JAX package's constants.NAV_*)
-NAV_POLL_HZ = 120.0
-NAV_RENDER_MAX_HZ = 100.0
-NAV_SLICE_RENDER_MAX_HZ = 10.0
 
 
 class ImageFiducials:

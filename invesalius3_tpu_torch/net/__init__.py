@@ -1,1 +1,2 @@
-"""Network helpers of the port (``download``: model weights)."""
+"""Network helpers of the port (``download``: model weights;
+``pedal_connection``: pedal input)."""

@@ -41,11 +41,21 @@ def _wrap(idx: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.where(idx < 0, idx + dim, torch.where(idx >= dim, idx - dim, idx))
 
 
+def _take_flat(flat: torch.Tensor, lin: torch.Tensor) -> torch.Tensor:
+    """``flat[lin]`` with the JAX package's gather rule: a negative index
+    counts from the end once, then every index is clamped into the array
+    (an index beyond one period, from a coordinate far outside the volume,
+    reads an end voxel instead of raising)."""
+    n = flat.numel()
+    lin = torch.where(lin < 0, lin + n, lin).clamp_(0, n - 1)
+    return flat[lin]
+
+
 def _gather(volume: torch.Tensor, zi, yi, xi) -> torch.Tensor:
     """The voxels at integer (z, y, x) indices, each wrapped by one period."""
     dz, dy, dx = volume.shape
     lin = (_wrap(zi, dz) * dy + _wrap(yi, dy)) * dx + _wrap(xi, dx)
-    return volume.reshape(-1)[lin]
+    return _take_flat(volume.reshape(-1), lin)
 
 
 def _axis_taps(i0: torch.Tensor, offsets, dim: int, stride: int) -> List[torch.Tensor]:
@@ -72,7 +82,7 @@ def trilinear(volume: torch.Tensor, x, y, z) -> torch.Tensor:
     xs = _axis_taps(x0, (0, 1), dx, 1)
 
     def g(dx_, dy_, dz_):
-        return flat[zs[dz_] + ys[dy_] + xs[dx_]].float()
+        return _take_flat(flat, zs[dz_] + ys[dy_] + xs[dx_]).float()
 
     # the order in which XLA's CPU code fuses the JAX package's compiled
     # trilinear (on its own and in the raycaster): the first three x blends

@@ -211,15 +211,143 @@ def test_reopen_saved_project(tmp_path, monkeypatch, ct_file):
 
 
 @pytest.mark.parametrize("argv,module", [
-    (["--serve", "8000"], "server.py"),
-    (["--shell"], "run_shell"),
     (["--remote-host", "localhost:5000"], "net/remote_control.py"),
-    (["--use-pedal"], "net/pedal_connection.py"),
 ])
 def test_flags_still_to_port_exit_naming_the_module(tmp_path, monkeypatch, argv, module):
     monkeypatch.setenv("XDG_CONFIG_HOME", str(tmp_path))
     with pytest.raises(SystemExit, match=module.replace(".", r"\.")):
         app.main(argv, device="cpu")
+    assert set(app._NOT_PORTED) == {"remote_host"}
+
+
+def _started_servers(monkeypatch):
+    """The ViewerServers the app starts, recorded as they start."""
+    from invesalius3_tpu_torch import server
+
+    started = []
+    start = server.ViewerServer.start
+
+    def record(self):
+        started.append(self)
+        return start(self)
+
+    monkeypatch.setattr(server.ViewerServer, "start", record)
+    return started
+
+
+def _get_json(srv, path):
+    import json
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}{path}") as r:
+        return json.loads(r.read())
+
+
+def test_serve_flag_serves_until_stopped(tmp_path, monkeypatch, ct_file):
+    """--serve 0 after the batch steps: the port's server answers on a free
+    port over the imported CT and its Bone mask, until stopped."""
+    import threading
+    import time
+
+    started = _started_servers(monkeypatch)
+    app.SERVE_STOP.clear()
+    rc = []
+    t = threading.Thread(target=lambda: rc.append(app.main(
+        ["--import-file", str(ct_file), "-t", "Bone", "--serve", "0"], device="cpu")))
+    t.start()
+    try:
+        deadline = time.monotonic() + 60
+        while not started and time.monotonic() < deadline:
+            time.sleep(0.05)
+        assert started, "the server did not start"
+        st = _get_json(started[0], "/api/status")
+        assert st["volume_shape"] == [20, 20, 20] and st["n_masks"] == 1
+        masks = _get_json(started[0], "/api/masks")
+        assert masks[0]["threshold_range"] == [226, 3071]  # the CT Bone preset
+    finally:
+        app.SERVE_STOP.set()
+        t.join(60)
+        app.SERVE_STOP.clear()
+    assert rc == [0]
+    with pytest.raises(OSError):  # stopped: the socket is closed
+        _get_json(started[0], "/api/status")
+
+
+@pytest.mark.parametrize("serve", [False, True])
+def test_shell_flag_runs_the_console(tmp_path, monkeypatch, ct_file, serve):
+    """--shell (alone, or beside --serve) opens an interactive console
+    whose namespace holds the app's objects (code.interact stubbed)."""
+    import code
+
+    seen = []
+    monkeypatch.setattr(code, "interact",
+                        lambda banner="", local=None, exitmsg=None: seen.append(
+                            (banner, local)))
+    started = _started_servers(monkeypatch)
+    argv = ["--import-file", str(ct_file), "-t", "Bone", "--shell"]
+    assert app.main(argv + (["--serve", "0"] if serve else []), device="cpu") == 0
+    (banner, ns), = seen
+    assert banner.startswith("invesalius3_tpu_torch shell")
+    want = {"np", "torch", "ops", "const", "events", "slc", "project", "session",
+            "volume"} | ({"server"} if serve else set())
+    assert set(ns) == want
+    assert ns["slc"].matrix.device.type == "cpu" and len(ns["slc"].masks) == 1
+    if serve:
+        assert ns["server"] is started[0]
+        with pytest.raises(OSError):  # stopped when the shell returned
+            _get_json(started[0], "/api/status")
+
+
+def test_use_pedal_needs_mido(tmp_path, monkeypatch, ct_file):
+    """--use-pedal without mido raises naming it, as the JAX app does."""
+    import sys
+
+    monkeypatch.setitem(sys.modules, "mido", None)  # not importable
+    with pytest.raises(RuntimeError, match="mido"):
+        app.main(["--import-file", str(ct_file), "--use-pedal"], device="cpu")
+    with pytest.raises(RuntimeError, match="mido"):
+        app_jax.main(["--import-file", str(ct_file), "--use-pedal"])
+
+
+def test_use_pedal_connects_a_midi_pedal(tmp_path, monkeypatch, ct_file):
+    """--use-pedal with a (fake) mido opens its first input port."""
+    import sys
+    import types
+
+    opened = []
+
+    class Port:
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *a):
+            return False
+
+        def iter_pending(self):
+            return iter(())
+
+    def open_input(name):
+        opened.append(name)
+        return Port()
+
+    fake = types.SimpleNamespace(get_input_names=lambda: ["pedal-0", "pedal-1"],
+                                 open_input=open_input)
+    monkeypatch.setitem(sys.modules, "mido", fake)
+    from invesalius3_tpu_torch.net import pedal_connection
+
+    made = []
+    init = pedal_connection.MidiPedal.__init__
+
+    def record(self, *a, **kw):
+        init(self, *a, **kw)
+        made.append(self)
+
+    monkeypatch.setattr(pedal_connection.MidiPedal, "__init__", record)
+    assert app.main(["--import-file", str(ct_file), "--use-pedal"], device="cpu") == 0
+    (pedal,) = made
+    pedal.stop()
+    pedal._thread.join(5)
+    assert pedal.port_name == "pedal-0" and opened == ["pedal-0"]
 
 
 def _triangles(path) -> int:

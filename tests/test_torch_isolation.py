@@ -53,3 +53,31 @@ def test_native_sources_are_the_ports_own(lib):
         path = Path(src).resolve()
         assert path.is_relative_to(PORT), f"{lib} builds {path}"
         assert path.is_file()
+
+
+NEW_MODULES = ["server.py", "console.py", "core/measures.py", "core/styles.py",
+               "navigation/mtms.py", "net/pedal_connection.py", "utils/errors.py",
+               "utils/helpers.py", "utils/i18n.py", "utils/logging.py",
+               "utils/paths.py", "utils/plugins.py"]
+
+
+@pytest.mark.parametrize("rel", NEW_MODULES)
+def test_the_scan_covers_the_viewer_server_slice(rel):
+    path = PORT / rel
+    assert path in SOURCES, rel
+    assert not [n for _, n in _imported_top_names(path) if n in FORBIDDEN]
+
+
+def test_server_and_catalogs_read_only_the_ports_files():
+    """The server serves the port's own viewer copy, and the translations
+    are looked up only in the port's own locale directory."""
+    from invesalius3_tpu_torch import server
+    from invesalius3_tpu_torch.utils import i18n
+
+    assert server.VIEWER_ROOT.resolve().is_relative_to(PORT)
+    for name in ("index.html", "app.js", "style.css"):
+        assert (server.VIEWER_ROOT / name).is_file()
+    dirs = i18n.locale_dirs()
+    assert dirs and all(d.resolve().is_relative_to(PORT) for d in dirs)
+    assert len(list(dirs[0].glob("*/LC_MESSAGES/invesalius3_tpu.po"))) == 24
+    assert len(list(dirs[0].glob("*/LC_MESSAGES/invesalius3_tpu.mo"))) == 24

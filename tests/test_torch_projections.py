@@ -53,7 +53,7 @@ def _mida_close(got, want, dtype):
 
 def test_constants_equal_the_jax_package():
     names = [n for n in dir(const) if n[0].isupper()]
-    assert len(names) == 50
+    assert len(names) == 57
     for n in ("BRUSH_CIRCLE", "BRUSH_SQUARE", "BRUSH_DRAW", "BRUSH_ERASE",
               "BRUSH_THRESHOLD", "FILTER_GAUSSIAN", "FILTER_BORDER", "FILTER_NAMES",
               "INTERP_NEAREST", "INTERP_TRILINEAR", "INTERP_TRICUBIC", "INTERP_LANCZOS"):

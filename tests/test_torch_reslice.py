@@ -150,6 +150,22 @@ def test_trilinear_matches_oracle_and_jax():
                                rtol=1e-5)
 
 
+def test_trilinear_far_outside_reads_as_the_jax_gather():
+    """Coordinates beyond one period of the volume (a tracker pose far off
+    the field) read the voxels JAX's clamping gather reads, instead of
+    raising."""
+    v = rng.integers(0, 100, (6, 7, 9)).astype(np.int16)
+    pts = rng.uniform(-60, 70, (500, 3)).astype(np.float32)
+    got = reslice.trilinear(_t(v), *(_t(pts[:, i]) for i in range(3))).numpy()
+    want = np.asarray(jax.jit(reslice_jax.trilinear)(jnp.asarray(v),
+                                                     *(pts[:, i] for i in range(3))))
+    _close_float(got, want, v)
+    zi = _t(np.array([-40, 3, 50]))
+    np.testing.assert_array_equal(
+        reslice._gather(_t(v), zi, zi, zi).numpy(),
+        np.asarray(reslice_jax._gather(jnp.asarray(v), *(np.array([-40, 3, 50]),) * 3)))
+
+
 def test_tricubic_interpolates_smoothly():
     zz, yy, xx = np.mgrid[:8, :8, :8].astype(np.float32)
     v = 2 * xx + 3 * yy + 5 * zz
