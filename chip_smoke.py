@@ -190,12 +190,39 @@ Phases, each fatal on failure (no phase catches an error):
    pick, the histogram (its counts numpy's on the same edges), a navigation
    round with the pedal and mTMS, a trachea DL job (its mask the direct
    segmenter's, same seeded weights), the language round trip, events and
-   log, and the PACS refusal (501).  Each endpoint's wall ms (a GET the
+   log.  Each endpoint's wall ms (a GET the
    median of 5, the STL and the scene once, a POST as sent), the peak
    memory and the launch counts below the server (oracle calls
    uncounted), beside the card's name and power limit; the sweep and ray
    counts must be above 0, and the shear-cache warm-up must log no
    failure.
+16. drives the network and the hardware trackers
+   (``network_and_trackers_phase``): ``make_ct(512)`` as 512 DICOM files of
+   512^2 beside a 128-slice series of the same study on a mini-PACS on
+   127.0.0.1 (``MiniPACS``: C-ECHO, study-root C-FIND, C-MOVE by the port's
+   ``send_c_store``); the port's ``ViewerServer`` on the card over HTTP:
+   ``/api/pacs/echo`` (true; a dead port false), ``/api/pacs/find`` (the
+   study's row as written), ``/api/pacs/move`` with import (640 files, each
+   dataset byte for byte the sent one; the larger series imported, equal to
+   ``group_to_volume`` of the source voxel for voxel), then the Bone
+   threshold and ``/api/watershed`` from the bench's markers (the direct
+   watershed's mask) and LMIP and MIDA frames in three orientations (the
+   direct frames, MIDA within 2 levels), the sweep and ray launches below
+   the server above 0, the shear-cache warm-up without failure; echo,
+   find and move ms (transfer and import, MB/s); then the four hardware
+   trackers (Polhemus ISOTRAK transcript, Polaris with its ROM upload,
+   OptiTrack NatNet datagrams, a MicronTracker replay) through
+   ``Tracker.connect``, each feeding a ``Navigation`` with the tract worker
+   and the e-field worker through ``NeuronavigationApi`` for 2 s, the TTL
+   ``SerialPortConnection`` on a fake port beside it: every coordinate read
+   equal to ``vendor_coords``' conversion of its replayed pose, counts and
+   pose-to-publish median and p95; the 9x9 and 4-ring x 12 grids on the
+   256^3 T1 phantom's scalp (every target on a scalp vertex, coil axes the
+   unit normals, the labels and counts); ``app.main --remote-host``
+   against a ``RemoteEventServer`` (its topics in order those a local hook
+   recorded, an injected event on the app's bus) and a 2 s ``Navigation``
+   with the mirror on, its scene rate beside phase [14]'s; the peak memory
+   beside the card's name and power limit.
 
 It prints the card's name and power limit first, a JSON line of the
 kernels before the last line, and as the last line
@@ -228,6 +255,7 @@ from invesalius3_tpu_torch.io import dicom_codecs as codecs
 from invesalius3_tpu_torch.core.surface import Surface, create_surface_from_mask
 from invesalius3_tpu_torch.models import fastsurfer, onnx_convert, segment, unet2d, unet3d
 from invesalius3_tpu_torch.models import layers as mlayers
+from invesalius3_tpu_torch.navigation.tracker import TrackerCoordinates
 from invesalius3_tpu_torch.net import download
 from invesalius3_tpu_torch.ops import (connected, floodfill, kernels, mesh, morphology,
                                        rasterize, raycast, render_mesh, reslice, resize,
@@ -458,10 +486,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_import_") as d:
         study_importers(dev, Path(d))
     torch.cuda.empty_cache()
-    navigation_phase(dev)
+    nav = navigation_phase(dev)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_server_") as d:
         viewer_server_phase(dev, Path(d))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_net_") as d:
+        network_and_trackers_phase(dev, Path(d), scene_hz_14=nav["session"][
+            "navigation.update_scene"]["count"] / nav["session"]["seconds"])
 
     entries = [
         {"name": f"watershed_sweep[axis={axis}]", "route": "cuda",
@@ -2880,19 +2912,29 @@ def _compare_nav(got: dict, want: dict) -> list:
     return notes
 
 
-def _session(dev, fod, wm, roi: np.ndarray, seconds: float) -> dict:
-    """``Navigation`` with the debug-approach tracker at NAV_POLL_HZ, the
-    probabilistic tract worker on ``fod`` and the e-field worker on ``roi``,
-    for ``seconds``: counts, shapes and latencies from a pose's timestamp
-    to its publication."""
+def _session(dev, fod, wm, roi: np.ndarray, seconds: float, tracker_id: str = None,
+             tracker_kw: dict = None, bus=None, efield_api=None, coordinates=None,
+             during=None, tracts=(64, 120)) -> dict:
+    """``Navigation`` with a tracker at NAV_POLL_HZ (the debug-approach one
+    unless ``tracker_id`` and ``tracker_kw`` name another), the
+    probabilistic tract worker on ``fod`` and the e-field worker on ``roi``
+    (through ``efield_api`` when given; ``tracts`` a pose: streamlines and
+    steps), for ``seconds``: counts, shapes and
+    latencies from a pose's timestamp to its publication.  ``bus`` is the
+    session's bus (a new one by default), ``coordinates`` replaces the
+    tracker's ``TrackerCoordinates`` before it connects, and ``during(bus)``
+    runs while the session does."""
     from invesalius3_tpu_torch import events
     from invesalius3_tpu_torch.navigation import navigation
     from invesalius3_tpu_torch.navigation.tracker import TRACKER_DEBUG_APPROACH
 
-    bus = events.Publisher()
+    bus = bus if bus is not None else events.Publisher()
     nav = navigation.Navigation(bus=bus, device=dev)
-    if not nav.tracker.connect(TRACKER_DEBUG_APPROACH, poll_hz=const.NAV_POLL_HZ):
-        raise AssertionError("the debug tracker did not connect")
+    if coordinates is not None:
+        nav.tracker.coordinates = coordinates
+    if not nav.tracker.connect(tracker_id or TRACKER_DEBUG_APPROACH,
+                               poll_hz=const.NAV_POLL_HZ, **(tracker_kw or {})):
+        raise AssertionError(f"the tracker {tracker_id} did not connect")
     while not nav.tracker.get_coordinates()[0].any():
         time.sleep(0.01)
     for i in range(3):
@@ -2906,9 +2948,10 @@ def _session(dev, fod, wm, roi: np.ndarray, seconds: float) -> dict:
     fre = nav.estimate_tracker_to_image_transform()
     hi = np.array(fod.shape[:3]) - 1
     nav.tract_params = {
-        "fod_sh": fod, "stop_mask": wm, "n_tracts_total": 64, "n_steps": 120,
+        "fod_sh": fod, "stop_mask": wm, "n_tracts_total": tracts[0], "n_steps": tracts[1],
         "world_to_vox": lambda p: np.clip(np.asarray(p)[::-1] / NAV_FOD_MM, 0, hi)}
-    nav.efield_params = {"roi_vertices": roi, "roi_ids": np.arange(len(roi)), "debug": True}
+    nav.efield_params = {"roi_vertices": roi, "roi_ids": np.arange(len(roi)),
+                         "debug": efield_api is None, "api": efield_api}
     seen = {"navigation.update_scene": [], "navigation.tracts": [], "navigation.efield": []}
     shapes = {"navigation.tracts": set(), "navigation.efield": set()}
 
@@ -2921,16 +2964,24 @@ def _session(dev, fod, wm, roi: np.ndarray, seconds: float) -> dict:
                 shapes[topic].add(kw["enorms"].shape)
         return on
 
-    for topic in seen:
-        bus.subscribe(listener(topic), topic)
+    listeners = [(listener(topic), topic) for topic in seen]
+    for fn, topic in listeners:
+        bus.subscribe(fn, topic)
     nav.start_navigation(poll_hz=const.NAV_POLL_HZ)
     threads = [nav._coreg, nav._updater, nav._tract_thread, nav._efield_thread]
-    time.sleep(seconds)
-    nav.stop_navigation()
-    nav.tracker.disconnect()
+    try:
+        t_end = time.monotonic() + seconds
+        if during is not None:
+            during(bus)
+        time.sleep(max(0.0, t_end - time.monotonic()))
+    finally:
+        nav.stop_navigation()
+        nav.tracker.disconnect()
+        for fn, topic in listeners:
+            bus.unsubscribe(fn, topic)
     if any(th.is_alive() for th in threads):
         raise AssertionError("a navigation thread outlived stop_navigation")
-    out = {"fre": fre}
+    out = {"fre": fre, "seconds": seconds}
     for topic, lat in seen.items():
         lat_ms = np.array(lat) * 1e3
         out[topic] = {"count": len(lat),
@@ -3149,18 +3200,6 @@ class _Client:
         ms, (code, _, data) = self._open(req)
         self.calls.setdefault(name or "POST " + path, []).append(ms)
         return code, json.loads(data)
-
-    def refused(self, path: str, body: dict):
-        import urllib.error
-        import urllib.request
-
-        req = urllib.request.Request(self.base + path, data=json.dumps(body).encode(),
-                                     headers={"Content-Type": "application/json"})
-        try:
-            urllib.request.urlopen(req, timeout=60)
-        except urllib.error.HTTPError as e:
-            return e.code, json.loads(e.read())
-        raise AssertionError(f"{path} answered")
 
 
 class _Uncounted:
@@ -3397,7 +3436,7 @@ def viewer_server_phase(dev, tmp: Path, n: int = SERVER_N, reps: int = SERVER_RE
         if not np.array_equal(landed, (mask > 0).astype(np.uint8) * 255):
             raise AssertionError("dl job: the landed mask differs from the direct one")
 
-        # 12: language, events, log; 13: PACS refused
+        # 12: language, events, log
         cat = _ok(*cl.post("/api/i18n", {"language": "pt_BR"}), "i18n")
         back = _ok(*cl.post("/api/i18n", {"language": "en"}), "i18n back")
         if cat["current"] != "pt_BR" or back["current"] != "en" or not cat["catalog"]:
@@ -3406,9 +3445,6 @@ def viewer_server_phase(dev, tmp: Path, n: int = SERVER_N, reps: int = SERVER_RE
         logs = json.loads(cl.get("/api/log")[2])
         if not evs or "/api/watershed" not in [e["message"] for e in logs]:
             raise AssertionError("events / log")
-        code, body = cl.refused("/api/pacs/echo", {"host": "127.0.0.1", "port": 1})
-        if code != 501 or "net/dicom_net.py" not in body["error"]:
-            raise AssertionError(f"pacs: {code} {body}")
     finally:
         srv.stop()
     thread = getattr(srv.state, "warm_thread", None)
@@ -3432,6 +3468,700 @@ def viewer_server_phase(dev, tmp: Path, n: int = SERVER_N, reps: int = SERVER_RE
         raise AssertionError(f"a kernel never launched below the server: {launches}")
     return {"ms": cl.ms, "launches": launches, "peak_gib": peak, "seconds": seconds}
 
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the network and the hardware trackers
+# ---------------------------------------------------------------------------
+
+NET_N = 512  # make_ct(512) as 512 DICOM files of 512^2 on the mini-PACS
+NET_SECOND = 128  # the study's second, smaller series
+NET_POSES = 300  # replayed poses a tracker (2.5 s at 120 Hz, then looped)
+NET_TRACKER_S = 2.0  # the Navigation session of each tracker
+NET_GRID_N = 256  # the T1 phantom (phase 14's) whose scalp the grids snap to
+NET_MIRROR_S = 2.0  # the Navigation session with the remote mirror on
+NET_STUDY_DESCRIPTION = "HEAD CT"  # the mini-PACS's catalogue entry
+NET_HARDWARE = ("polhemus_serial", "polaris_ndi", "optitrack", "claron_mtc")
+
+
+def _free_port() -> int:
+    """A port of 127.0.0.1 nothing listens on now (picked ahead of a C-MOVE,
+    whose destination a PACS must know)."""
+    import socket
+
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        return probe.getsockname()[1]
+
+
+def _implicit_text(group: int, elem: int, text: str) -> bytes:
+    import struct
+
+    b = text.encode("ascii")
+    if len(b) % 2:
+        b += b"\x00" if group == 0x0020 else b" "
+    return struct.pack("<HHI", group, elem, len(b)) + b
+
+
+class MiniPACS:
+    """A PACS on 127.0.0.1 to check the port's client against (scaffolding
+    of the check, not a feature of the port).  It answers C-ECHO, a
+    study-root C-FIND that lists its one study when the patient name
+    matches, and a C-MOVE of that study: every instance C-STOREd with the
+    port's ``send_c_store`` to 127.0.0.1 at ``store_port``.  ``instances``
+    is [(SOP instance UID, explicit VR LE dataset bytes)]; ``row`` the
+    study's identifier (tag name -> text).  ``move_s`` holds the seconds
+    from each C-MOVE-RQ's identifier to its final response, ``moved_bytes``
+    the datasets' bytes C-STOREd."""
+
+    def __init__(self, instances, row: dict, store_port: int, timeout: float = 120.0):
+        import socket
+        import socketserver
+
+        from invesalius3_tpu_torch.net import dicom_net
+
+        self.instances = list(instances)
+        self.row = dict(row)
+        self.store_port = store_port
+        self.timeout = timeout
+        self.move_s, self.moved_bytes = [], 0
+        pacs = self
+
+        class Handler(socketserver.BaseRequestHandler):
+            def handle(self):
+                self.request.settimeout(pacs.timeout)
+                self.request.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+                try:
+                    pacs._serve(self.request, dicom_net)
+                except OSError:
+                    pass
+
+        class Server(socketserver.ThreadingTCPServer):
+            allow_reuse_address = True
+            daemon_threads = True
+
+        self._server = Server(("127.0.0.1", 0), Handler)
+        self.port = self._server.server_address[1]
+        self._thread = None
+
+    def start(self) -> "MiniPACS":
+        import threading
+
+        self._thread = threading.Thread(target=self._server.serve_forever,
+                                        kwargs={"poll_interval": 0.05}, name="mini-pacs",
+                                        daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._server.shutdown()
+        self._server.server_close()
+        if self._thread is not None:
+            self._thread.join(timeout=10.0)
+
+    def _serve(self, s, dn) -> None:
+        import fnmatch
+        import struct
+
+        def recv_pdu():
+            head = dn._recv_exact(s, 6)
+            if head is None:
+                return None, b""
+            body = dn._recv_exact(s, struct.unpack(">I", head[2:6])[0])
+            if body is None:
+                return None, b""
+            return head[0], body
+
+        def el(elem, payload):
+            return struct.pack("<HHI", 0x0000, elem, len(payload)) + payload
+
+        def send(ctx, field, msg_id, status, sop_class, dataset=None):
+            body = b"".join([
+                el(0x0002, dn._uid(sop_class)), el(0x0100, struct.pack("<H", field)),
+                el(0x0120, struct.pack("<H", msg_id)),
+                el(0x0800, struct.pack("<H", 0x0101 if dataset is None else 0x0000)),
+                el(0x0900, struct.pack("<H", status))])
+            body = el(0x0000, struct.pack("<I", len(body))) + body
+            out = dn._pdu(0x04, struct.pack(">IB", len(body) + 2, ctx) + b"\x03" + body)
+            if dataset is not None:
+                out += dn._pdu(0x04, struct.pack(">IB", len(dataset) + 2, ctx) + b"\x02"
+                               + dataset)
+            s.sendall(out)
+
+        kind, body = recv_pdu()
+        if kind != 0x01:
+            return
+        ac = body[:68] + dn._item(0x10, dn._uid("1.2.840.10008.3.1.1.1"))
+        for ctx_id, _, _ in dn._parse_associate_rq(body):
+            ac += dn._item(0x21, struct.pack(">BBBB", ctx_id, 0, 0, 0)
+                           + dn._item(0x40, dn._uid(dn.IMPLICIT_VR_LE)))
+        s.sendall(dn._pdu(0x02, ac + dn._item(0x50, dn._item(0x51, struct.pack(">I", 16384)))))
+        cmd, ident, field, msg_id, sop_class = bytearray(), bytearray(), None, 1, ""
+        while True:
+            kind, body = recv_pdu()
+            if kind == 0x05:  # A-RELEASE-RQ
+                s.sendall(dn._pdu(0x06, b"\x00" * 4))
+                return
+            if kind != 0x04:
+                return
+            pos = 0
+            while pos + 6 <= len(body):
+                (ln,) = struct.unpack_from(">I", body, pos)
+                ctx, mch, data = body[pos + 4], body[pos + 5], body[pos + 6:pos + 4 + ln]
+                pos += 4 + ln
+                if mch & 0x01:
+                    cmd += data
+                    if not mch & 0x02:
+                        continue
+                    field = dn._read_implicit_tag(cmd, 0x0000, 0x0100)
+                    msg_id = dn._read_implicit_tag(cmd, 0x0000, 0x0110) or 1
+                    sop_class = dn._read_implicit_text(cmd, 0x0000, 0x0002) or ""
+                    cmd = bytearray()
+                    if field == 0x0030:  # C-ECHO-RQ
+                        send(ctx, 0x8030, msg_id, 0, sop_class)
+                    continue
+                ident += data
+                if not mch & 0x02:
+                    continue
+                if field == 0x0020:  # C-FIND-RQ: the study if the name matches
+                    pattern = dn._read_implicit_text(ident, 0x0010, 0x0010) or "*"
+                    if fnmatch.fnmatchcase(self.row["PatientName"], pattern):
+                        tags = [(0x0008, 0x0020, "StudyDate"), (0x0008, 0x0052, None),
+                                (0x0008, 0x1030, "StudyDescription"),
+                                (0x0010, 0x0010, "PatientName"), (0x0010, 0x0020, "PatientID"),
+                                (0x0020, 0x000D, "StudyInstanceUID")]
+                        match = b"".join(_implicit_text(g, e, "STUDY" if k is None
+                                                        else self.row[k]) for g, e, k in tags)
+                        send(ctx, 0x8020, msg_id, 0xFF00, sop_class, match)
+                    send(ctx, 0x8020, msg_id, 0x0000, sop_class)
+                elif field == 0x0021:  # C-MOVE-RQ: C-STORE the study
+                    uid = dn._read_implicit_text(ident, 0x0020, 0x000D)
+                    t0 = time.perf_counter()
+                    sent = 0
+                    if uid == self.row["StudyInstanceUID"]:
+                        sent = dn.send_c_store("127.0.0.1", self.store_port, self.instances,
+                                               sop_class=dn.CT_STORAGE,
+                                               transfer_syntax=dn.EXPLICIT_VR_LE,
+                                               timeout=self.timeout)
+                        self.moved_bytes += sum(len(d) for _, d in self.instances)
+                    self.move_s.append(time.perf_counter() - t0)
+                    ok = uid == self.row["StudyInstanceUID"] and sent == len(self.instances)
+                    send(ctx, 0x8021, msg_id, 0x0000 if ok else 0xA701, sop_class)
+                ident = bytearray()
+
+
+def pacs_instances(paths) -> dict:
+    """SOP instance UID -> the dataset of each Part-10 file (after its meta
+    group), as a C-STORE sends it."""
+    out = {}
+    for p in paths:
+        raw = Path(p).read_bytes()
+        meta, _, _ = dicom._parse_file_meta(raw, 132)
+        tags, _, _ = dicom._parse_elements(raw, meta["_end"], True, False)
+        out[tags["SOPInstanceUID"]] = raw[meta["_end"]:]
+    return out
+
+
+def _replay_poses(n: int) -> np.ndarray:
+    """(n, 3, 6) probe, reference and coil poses (mm, degrees) along a
+    closed path, distinct from pose to pose: the probe on a tilted circle
+    of radius 40 mm, the reference swaying, the coil beside the probe."""
+    t = 2 * np.pi * np.arange(n) / n
+    out = np.zeros((n, 3, 6))
+    out[:, 0, :3] = np.c_[40 * np.cos(t), 40 * np.sin(t), 60 + 10 * np.sin(2 * t)]
+    out[:, 0, 3:] = np.c_[10 * np.sin(t), 5 * np.cos(t), 3 * np.sin(3 * t)]
+    out[:, 1, :3] = np.c_[2 * np.sin(t), -1.5 * np.cos(t), 0.5 * np.sin(t)]
+    out[:, 1, 3:] = np.c_[1.5 * np.cos(t), 2 * np.sin(t), -np.sin(2 * t)]
+    out[:, 2] = out[:, 0] + [5.0, -5.0, 2.0, 1.0, -1.0, 0.5]
+    return out
+
+
+def hardware_replays(n: int) -> dict:
+    """tracker id -> (connect kwargs, [(coords (3, 6), flags (3,))] expected
+    from ``vendor_coords`` for each replayed pose, in replay order): each
+    vendor's raw payload of ``_replay_poses(n)`` (an ISOTRAK transcript in
+    cm, a Polaris transcript with its ROM upload and the reference out of
+    view every 50th frame, NatNet datagrams in metres with the coil
+    untracked every 40th, MicronTracker poses)."""
+    import struct
+
+    from invesalius3_tpu_torch.navigation import serial_drivers as sd
+    from invesalius3_tpu_torch.navigation import vendor_coords as vc
+
+    poses = _replay_poses(n)
+    out = {}
+
+    # Polhemus ISOTRAK: probe and reference in cm as the device prints them
+    # (two decimals); the driver refers the probe to the reference
+    cm = [(tuple(p[0, :3] / 10) + tuple(p[0, 3:]), tuple(p[1, :3] / 10) + tuple(p[1, 3:]))
+          for p in poses]
+    want = []
+    for probe, ref in cm:
+        pr, rf = ([float(f"{v:.2f}") for v in x] for x in (probe, ref))
+        row_p = np.array([pr[0] * 10.0, pr[1] * 10.0, pr[2] * 10.0, pr[3], pr[4], pr[5]])
+        row_r = np.array([rf[0] * 10.0, rf[1] * 10.0, rf[2] * 10.0, rf[3], rf[4], rf[5]])
+        coords = np.zeros((3, 6))
+        coords[0] = vc.polhemus_dynamic_pose(row_p, row_r)
+        coords[1] = row_r
+        want.append((coords, np.array([True, True, False])))
+    out["polhemus_serial"] = ({"transcript": sd.make_isotrak_transcript(cm)}, want)
+
+    # NDI Polaris: unit quaternions and mm, quantised as the device reports
+    frames, want = [], []
+    for k, p in enumerate(poses):
+        tools, coords, flags = [], np.zeros((3, 6)), np.zeros(3, bool)
+        for i in range(3):
+            q = transforms.quaternion_from_matrix(
+                transforms.euler_matrix(*np.radians(p[i, 3:]), axes="rzyx"))
+            if i == 1 and k % 50 == 49:
+                tools.append(None)
+                continue
+            tools.append((tuple(q), tuple(p[i, :3])))
+            coords[i] = vc.quaternion_pose([int(round(v * 10000)) * 0.0001 for v in q],
+                                           [int(round(v * 100)) * 0.01 for v in p[i, :3]])
+            flags[i] = True
+        frames.append(tools)
+        want.append((coords, flags))
+    roms = [bytes(range(256)) + bytes([i]) * 100 for i in range(3)]
+    out["polaris_ndi"] = ({"transcript": sd.make_polaris_transcript(frames, rom_files=roms),
+                           "rom_files": roms}, want)
+
+    # OptiTrack NatNet: rigid bodies 1-3 in metres, (qx, qy, qz, qw) float32
+    datagrams, want = [], []
+    for k, p in enumerate(poses):
+        bodies, coords, flags = [], np.zeros((3, 6)), np.zeros(3, bool)
+        for i in range(3):
+            q = transforms.quaternion_from_matrix(
+                transforms.euler_matrix(*np.radians(p[i, 3:]), axes="rzyx"))
+            body = {"id": i + 1, "pos": tuple(p[i, :3] / 1000.0),
+                    "quat": (q[1], q[2], q[3], q[0]), "tracked": not (i == 2 and k % 40 == 39)}
+            bodies.append(body)
+            qx, qy, qz, qw, px, py, pz = struct.unpack("<7f", struct.pack(
+                "<7f", *body["quat"], *body["pos"]))
+            coords[i] = vc.optitrack_pose(qw, qx, qy, qz, px, py, pz)
+            flags[i] = body["tracked"]
+        datagrams.append(sd.make_natnet_frame(bodies))
+        want.append((coords, flags))
+    out["optitrack"] = ({"frames": datagrams}, want)
+
+    # Claron MicronTracker: mm and (z, y, x) angles through its SDK surface
+    mtc = [[list(p[i]) for i in range(3)] for p in poses]
+    want = [(np.array([vc.claron_pose(*row) for row in pose]), np.ones(3, bool))
+            for pose in mtc]
+    out["claron_mtc"] = ({"poses": mtc}, want)
+    return out
+
+
+class _RecordedCoordinates(TrackerCoordinates):
+    """A ``TrackerCoordinates`` that keeps every read the poll thread hands
+    it, in order."""
+
+    def __init__(self):
+        super().__init__()
+        self.reads = []
+
+    def set_coordinates(self, coords, flags):
+        self.reads.append((np.array(coords, copy=True), np.array(flags, copy=True)))
+        super().set_coordinates(coords, flags)
+
+
+class _FakeTTL:
+    """A serial port for the TTL line: records RTS and reports a trigger
+    byte on every 12th read."""
+
+    def __init__(self):
+        self.rts, self.reads = [], 0
+
+    def setRTS(self, v):
+        self.rts.append(bool(v))
+
+    def read(self, n):
+        self.reads += 1
+        return b"\x01" if self.reads % 12 == 0 else b""
+
+    def close(self):
+        pass
+
+
+class _SolverConnection:
+    """The external e-field solver behind ``NeuronavigationApi``: the debug
+    norms on the card for each pose it is asked about."""
+
+    def __init__(self, roi: np.ndarray, dev):
+        from invesalius3_tpu_torch.navigation import efield
+
+        self._norms = efield.debug_efield_norms
+        self.roi = torch.from_numpy(np.asarray(roi, np.float32)).to(dev)
+        self.dev = dev
+        self.calls = 0
+
+    def update_efield_vectorROIMax(self, position, orientation, T_rot, id_list):
+        self.calls += 1
+        return self._norms(self.roi, torch.tensor(position, device=self.dev),
+                           torch.tensor(orientation, device=self.dev)).cpu().numpy()
+
+
+def _pacs_path(dev, tmp: Path, n: int, second: int, cl_reps: int, times: dict) -> dict:
+    """Phase 16's PACS part: the study on the mini-PACS, the port's server
+    on ``dev`` driven over HTTP (echo, a dead echo, find, move with import),
+    the volume, the watershed and the LMIP and MIDA frames held to direct
+    calls.  Returns the server's launch counts."""
+    from invesalius3_tpu_torch import server as server_mod
+    from invesalius3_tpu_torch.utils import logging as ilog
+
+    ct = pipeline.make_ct(n)
+    src = tmp / "pacs"
+    t0 = time.perf_counter()
+    paths, _ = write_series(src, ct, SERIES_UIDS[0], seed=1)
+    first = n // 4
+    paths2, _ = write_series(src / "second", ct[first:first + second], SERIES_UIDS[1], seed=2)
+    times["write"] = time.perf_counter() - t0
+    sent = pacs_instances(paths + paths2)
+    f0 = dicom.read_dicom(paths[0])
+    row = {k: f0.get(k) for k in ("StudyDate", "PatientName", "PatientID", "StudyInstanceUID")}
+    row["StudyDescription"] = NET_STUDY_DESCRIPTION
+    store_port = _free_port()
+    pacs = MiniPACS(list(sent.items()), row, store_port).start()
+    slc = Slice(Volume.from_numpy(pipeline.make_ct(64), spacing=pipeline.SPACING, device=dev))
+    srv = server_mod.ViewerServer(slc).start()
+    cl = _Client(srv.port, cl_reps)
+    pacs_body = {"host": "127.0.0.1", "port": pacs.port}
+    try:
+        out = _ok(*cl.post("/api/pacs/echo", pacs_body), "echo")
+        if out != {"ok": True}:
+            raise AssertionError(f"echo: {out}")
+        out = _ok(*cl.post("/api/pacs/echo", {"host": "127.0.0.1", "port": _free_port(),
+                                              "timeout": 2.0}, name="POST /api/pacs/echo dead"),
+                  "dead echo")
+        if out != {"ok": False}:
+            raise AssertionError(f"echo to a dead port: {out}")
+        found = _ok(*cl.post("/api/pacs/find", {**pacs_body, "patient_name": "PHANTOM*"}),
+                    "find")
+        if found != [row]:
+            raise AssertionError(f"find: {found}, written {row}")
+        kernels.reset_launches()
+        rays.reset_launches()
+        dest = tmp / "moved"
+        t_move = time.perf_counter()
+        moved = _ok(*cl.post("/api/pacs/move", {**pacs_body, "study_uid": row["StudyInstanceUID"],
+                                                "dest": str(dest), "listen_port": store_port,
+                                                "timeout": 300.0}), "move")
+        times["move_ms"] = (time.perf_counter() - t_move) * 1e3
+        times["transfer_ms"] = pacs.move_s[-1] * 1e3
+        times["import_ms"] = times["move_ms"] - times["transfer_ms"]
+        times["mb_per_s"] = pacs.moved_bytes / 1e6 / pacs.move_s[-1]
+        if len(moved["files"]) != n + second or moved["shape"] != [n, n, n]:
+            raise AssertionError(f"move: {len(moved['files'])} files, shape {moved['shape']}")
+        got = pacs_instances(moved["files"])
+        if got.keys() != sent.keys() or any(got[k] != sent[k] for k in sent):
+            raise AssertionError("move: a received dataset differs from the one sent")
+        with _Uncounted():
+            g = max(dicom.load_dicom_dir(src), key=lambda g: len(g.files))
+            want, _, _ = dicom.group_to_volume(g, device=dev)
+            same = bool(torch.equal(want, srv.state.slice.matrix))
+            del want
+        if not same:
+            raise AssertionError("move: the imported volume differs from group_to_volume's")
+        log(f"  C-MOVE: {len(moved['files'])} files, {pacs.moved_bytes} dataset bytes, "
+            "every one equal to the sent dataset; the volume equal to group_to_volume's")
+
+        slc = srv.state.slice
+        _ok(*cl.post("/api/window", {"ww": 400.0, "wl": 40.0}), "window")
+        lo, hi = const.THRESHOLD_PRESETS_CT["Bone"]
+        _ok(*cl.post("/api/threshold", {"tmin": lo, "tmax": hi}), "threshold")
+        marks = np.argwhere(pipeline.bench_markers(n))
+        labels_at = pipeline.bench_markers(n)[tuple(marks.T)]
+        body = {"markers": [{"position": [int(c) for c in m], "label": int(lb)}
+                            for m, lb in zip(marks, labels_at)]}
+        out = _ok(*cl.post("/api/watershed", body), "watershed")
+        with _Uncounted():
+            ref = watershed.watershed(slc.matrix, torch.from_numpy(
+                pipeline.bench_markers(n)).to(dev), algorithm="Watershed")
+            same = bool(torch.equal((ref == 1).to(torch.uint8) * 253, slc.current_mask.data))
+            n_ref = int((ref == 1).sum())
+            del ref
+        if not same or out["voxels"] != n_ref:
+            raise AssertionError(f"watershed: {out['voxels']} voxels, direct {n_ref}, "
+                                 f"mask equal {same}")
+        mid, slab = n // 2, max(1, n // 8)
+        for o in ORIENTATIONS:
+            for p in (const.PROJECTION_LMIP, const.PROJECTION_MIDA):
+                name = f"GET /api/slice/{o}/{mid} {const.PROJECTION_NAMES[p]}"
+                img = _png_rgb(cl.get(f"/api/slice/{o}/{mid}?projection={p}&slabs={slab}",
+                                      name=name)[2])
+                with _Uncounted():
+                    direct = slc.get_rendered_slice(o, mid, projection=p, slabs=slab,
+                                                    measures=srv.state.measures)
+                d = int(np.abs(img.astype(int) - direct.astype(int)).max())
+                if img.shape != direct.shape or d > SERVER_FRAMES[p]:
+                    raise AssertionError(f"{name}: the server's frame differs by {d}")
+    finally:
+        srv.stop()
+        pacs.stop()
+    thread = getattr(srv.state, "warm_thread", None)
+    if thread is not None:
+        thread.join()
+    warm_fail = ilog.query_log(search="warm-up failed")
+    if warm_fail:
+        raise AssertionError(f"the shear-cache warm-up failed: {warm_fail}")
+    times["ms"] = cl.ms
+    return {"sweeps": dict(kernels.LAUNCHES),
+            "rays": {k: dict(v) for k, v in rays.LAUNCHES.items()}}
+
+
+def _tracker_sessions(dev, poses: int, seconds: float, fod_shape, roi_n: int,
+                      tracts) -> dict:
+    """Phase 16's trackers: each hardware driver through ``Tracker.connect``
+    on its replay, feeding a ``Navigation`` session with the tract worker
+    and the e-field worker (through ``NeuronavigationApi``), the TTL port
+    pulsing beside it; every read held to ``vendor_coords``' conversion."""
+    from invesalius3_tpu_torch.navigation.serial_port import SerialPortConnection
+    from invesalius3_tpu_torch.net.neuronavigation_api import NeuronavigationApi
+
+    fod, _, wm = nav_fields(dev, tuple(fod_shape), NAV_LMAX)
+    roi = (np.random.default_rng(7).uniform(-60, 60, (roi_n, 3)) + 120).astype(np.float32)
+    out = {}
+    for tracker_id, (kw, want) in hardware_replays(poses).items():
+        solver = _SolverConnection(roi, dev)
+        api = NeuronavigationApi(connection=solver)
+        coords = _RecordedCoordinates()
+        ttl_port = _FakeTTL()
+        ttl_seen = {"serial.pulse_sent": 0, "serial.trigger_received": 0}
+
+        def during(bus, ttl_port=ttl_port, seconds=seconds):
+            ttl = SerialPortConnection(serial_port=ttl_port, bus=bus, poll_hz=const.NAV_POLL_HZ)
+            for topic in ttl_seen:
+                bus.subscribe(lambda topic=topic, **kw: ttl_seen.__setitem__(
+                    topic, ttl_seen[topic] + 1), topic)
+            ttl.start()
+            try:
+                t_end = time.monotonic() + seconds
+                while time.monotonic() < t_end:
+                    ttl.send_pulse()
+                    time.sleep(0.1)
+            finally:
+                ttl.stop()
+                ttl.join(timeout=5.0)
+            if ttl.is_alive():
+                raise AssertionError("the TTL thread outlived its stop")
+
+        t0 = time.perf_counter()
+        sess = _session(dev, fod, wm, roi, seconds, tracker_id=tracker_id, tracker_kw=kw,
+                        efield_api=api, coordinates=coords, during=during, tracts=tracts)
+        reads = coords.reads
+        bad = [k for k, (c, f) in enumerate(reads)
+               if not (np.array_equal(c, want[k % len(want)][0])
+                       and np.array_equal(f, want[k % len(want)][1]))]
+        if not reads or bad:
+            raise AssertionError(f"{tracker_id}: {len(bad)} of {len(reads)} reads differ from "
+                                 f"vendor_coords' conversion (first at read {bad[:1]})")
+        scene, tract_msgs, ef = (sess[k] for k in ("navigation.update_scene",
+                                                   "navigation.tracts", "navigation.efield"))
+        if scene["count"] < 1 or tract_msgs["count"] < 1 or ef["count"] < 1 or solver.calls < 1 \
+                or sess["shapes"]["navigation.efield"] != [(roi_n,)] \
+                or min(ttl_seen.values()) < 1 or True not in ttl_port.rts:
+            raise AssertionError(f"{tracker_id}: session {sess}, solver calls {solver.calls}, "
+                                 f"TTL {ttl_seen}")
+        log(f"  {tracker_id} ({time.perf_counter() - t0:.1f} s): {len(reads)} reads equal to "
+            f"vendor_coords' conversion; " + "; ".join(
+                f"{k.split('.')[1]} {v['count']} (pose to publish median "
+                f"{v['median_ms'] or 0:.3f} ms, p95 {v['p95_ms'] or 0:.3f} ms)"
+                for k, v in sess.items() if k.startswith("navigation."))
+            + f"; solver calls {solver.calls}; TTL {ttl_seen}")
+        out[tracker_id] = {"reads": len(reads), **sess, "solver_calls": solver.calls,
+                           "ttl": dict(ttl_seen)}
+    del fod, wm
+    return out
+
+
+def _grid_path(dev, n: int) -> dict:
+    """Phase 16's stimulation grids: a 9x9 rectangular and a 4-ring x 12
+    circular grid about the top of the T1 phantom's scalp surface (above
+    150), brought to the host."""
+    from invesalius3_tpu_torch.navigation.grid import GridGenerator, ScalpGeometry
+    from invesalius3_tpu_torch.navigation.markers import Marker, MarkerType
+    from invesalius3_tpu_torch.ops import marching
+
+    image = _mri(n)
+    img = torch.as_tensor(image, device=dev)
+    dm = marching.mask_to_surface_device((img > 150).to(torch.uint8) * 255)
+    verts = dm.verts3v.t().double().cpu().numpy()
+    faces = dm.faces3t.t().cpu().numpy()
+    del dm, img
+    ms = {}
+    t0 = time.perf_counter()
+    scalp = ScalpGeometry(verts, faces)
+    ms["normals"] = (time.perf_counter() - t0) * 1e3
+    top = verts[int(np.argmax(verts[:, 2]))]
+    ref = Marker(marker_type=MarkerType.COIL_TARGET, position=(top[0], -top[1], top[2]),
+                 label="G", z_rotation=15.0)
+    gg = GridGenerator(scalp)
+    grids = {}
+    t0 = time.perf_counter()
+    grids["rectangular"] = gg.generate_rectangular_grid(ref, 9, 9, 5.0)
+    ms["rectangular 9x9"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    grids["circular"] = gg.generate_circular_grid(ref, 4, 12, 6.0)
+    ms["circular 4x12"] = (time.perf_counter() - t0) * 1e3
+    want = {"rectangular": {f"G {r}_{c}" for r in range(1, 10) for c in range(1, 10)}
+            - {"G 5_5"},
+            "circular": {f"G {r}_{k}" for r in range(1, 5) for k in range(1, 13)}}
+    on_scalp = {tuple(v) for v in verts}
+    for kind, grid in grids.items():
+        pos = np.array([m.position for m in grid]) * [1, -1, 1]
+        if len(grid) != len(want[kind]) or {m.label for m in grid} != want[kind] \
+                or not all(tuple(p) in on_scalp for p in pos):
+            raise AssertionError(f"{kind} grid: {len(grid)} targets, labels or positions off "
+                                 "the scalp's vertices")
+        _, normals = scalp.project(pos)
+        zhat = np.array([transforms.euler_matrix(*np.radians(m.orientation),
+                                                 axes="sxyz")[:3, 2] for m in grid])
+        if np.abs(np.linalg.norm(normals, axis=1) - 1).max() > 1e-12 \
+                or np.abs(zhat - normals).max() > 1e-9 \
+                or any(m.marker_type != MarkerType.COIL_TARGET or m.z_rotation != 15.0
+                       for m in grid):
+            raise AssertionError(f"{kind} grid: a coil axis is not its unit scalp normal")
+    log(f"  grids on a {len(verts)}-vertex, {len(faces)}-face scalp ({n}^3 T1 phantom): "
+        f"{len(grids['rectangular'])} + {len(grids['circular'])} targets on scalp vertices, "
+        "coil axes the unit normals; ms " + ", ".join(f"{k} {v:.1f}" for k, v in ms.items()))
+    return {"verts": len(verts), "ms": ms}
+
+
+def _mirror_path(dev, tmp: Path, n: int, fod_shape, roi_n: int, seconds: float,
+                 tracts) -> dict:
+    """Phase 16's remote mirror: ``app.main --remote-host`` against a
+    ``RemoteEventServer``, its mirrored topics against a local hook's, an
+    injected event on the app's bus; then a Navigation session with the
+    mirror on."""
+    import threading
+
+    from invesalius3_tpu_torch import events
+    from invesalius3_tpu_torch.net.remote_control import RemoteControl
+    from invesalius3_tpu_torch.net.remote_server import RemoteEventServer
+
+    nii = tmp / "ct.nii"
+    nifti.write_nifti(nii, pipeline.make_ct(n), spacing=pipeline.SPACING)
+    srv = RemoteEventServer().start()
+    local, injected, arrived = [], [], threading.Event()
+    add_hook = events.bus.add_send_message_hook
+
+    def recording(hook):
+        def both(topic, kw):
+            local.append(topic)
+            if len(local) == 1:  # the app is connected: inject one event
+                deadline = time.monotonic() + 10
+                while not srv._clients and time.monotonic() < deadline:
+                    time.sleep(0.005)  # the server's handler registers the client
+                if srv.send("remote.probe", value=7) != 1 or not arrived.wait(10.0):
+                    raise AssertionError("the injected event did not reach the app's bus")
+            hook(topic, kw)
+        add_hook(both)
+
+    def on_probe(**kw):
+        injected.append(kw)
+        arrived.set()
+
+    events.bus.add_send_message_hook = recording
+    events.subscribe(on_probe, "remote.probe")
+    try:
+        t0 = time.perf_counter()
+        rc = app.main(["--import-file", str(nii), "-t", "Bone", "-e", str(tmp / "bone.stl"),
+                       "--remote-host", f"127.0.0.1:{srv.port}"], device=dev)
+        app_s = time.perf_counter() - t0
+        if rc != 0 or events.bus._hook is not None:
+            raise AssertionError(f"app --remote-host: status {rc}, hook left {events.bus._hook}")
+        deadline = time.monotonic() + 30
+        while len(srv.received) < len(local) and time.monotonic() < deadline:
+            time.sleep(0.02)
+        got = [m["topic"] for m in srv.received]
+        if not local or got != local or injected != [{"value": 7}]:
+            raise AssertionError(f"mirror: server {got}, local {local}, injected {injected}")
+        log(f"  app --remote-host ({app_s:.1f} s): {len(got)} events mirrored in order "
+            f"({', '.join(dict.fromkeys(got))}); the injected event reached the app's bus")
+
+        fod, _, wm = nav_fields(dev, tuple(fod_shape), NAV_LMAX)
+        roi = (np.random.default_rng(7).uniform(-60, 60, (roi_n, 3)) + 120).astype(np.float32)
+        srv.received.clear()
+        rc_nav = RemoteControl("127.0.0.1", srv.port)
+        rc_nav.connect()
+        try:
+            sess = _session(dev, fod, wm, roi, seconds, bus=events.bus, tracts=tracts)
+        finally:
+            rc_nav.disconnect()
+        deadline = time.monotonic() + 30
+        scene = sess["navigation.update_scene"]["count"]
+        while time.monotonic() < deadline and sum(
+                m["topic"] == "navigation.update_scene" for m in srv.received) < scene:
+            time.sleep(0.05)
+        mirrored = sum(m["topic"] == "navigation.update_scene" for m in srv.received)
+        if mirrored != scene or scene < 1:
+            raise AssertionError(f"mirror session: {scene} scene updates, {mirrored} mirrored")
+        del fod, wm
+    finally:
+        events.bus.add_send_message_hook = add_hook
+        events.unsubscribe(on_probe, "remote.probe")
+        srv.stop()
+    return {"app_s": app_s, "topics": len(got), "session": sess}
+
+
+def network_and_trackers_phase(dev, tmp: Path, n: int = NET_N, second: int = NET_SECOND,
+                               poses: int = NET_POSES, tracker_s: float = NET_TRACKER_S,
+                               grid_n: int = NET_GRID_N, mirror_s: float = NET_MIRROR_S,
+                               fod_shape=NAV_FOD_SHAPE, roi_n: int = NAV_ROI,
+                               tracts=(64, 120), reps: int = SERVER_REPS,
+                               scene_hz_14: float = None) -> dict:
+    """Phase 16: the PACS retrieve to the watershed through the server, the
+    four hardware trackers feeding Navigation sessions (phase 14's workers:
+    ``tracts`` streamlines x steps a pose, ``roi_n`` e-field vertices), the
+    stimulation grids on a scalp, and the remote mirror.  ``scene_hz_14`` is
+    phase 14's scene rate, printed beside the mirrored session's."""
+    import os
+
+    log(f"[16] the network and the hardware trackers: a C-MOVE of make_ct({n}) as {n} + "
+        f"{second} files, {len(NET_HARDWARE)} trackers x {tracker_s:g} s, grids on the "
+        f"{grid_n}^3 T1 scalp, the remote mirror")
+    card = "cpu"
+    if dev.type == "cuda":
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+        torch.cuda.reset_peak_memory_stats()
+    log(f"  card: {card}")
+    os.environ["XDG_CONFIG_HOME"] = str(tmp / "config")
+    os.environ.pop("INV3_LANGUAGE", None)
+    t_phase = time.perf_counter()
+    pacs_times = {}
+    launches = _pacs_path(dev, tmp, n, second, reps, pacs_times)
+    ms = pacs_times["ms"]
+    log(f"  PACS ({card}; wall ms over HTTP): echo {ms['POST /api/pacs/echo'][0]:.3f}, "
+        f"dead echo {ms['POST /api/pacs/echo dead'][0]:.3f}, find "
+        f"{ms['POST /api/pacs/find'][0]:.3f}, move {pacs_times['move_ms']:.3f} (transfer "
+        f"{pacs_times['transfer_ms']:.3f} at {pacs_times['mb_per_s']:.1f} MB/s, import "
+        f"{pacs_times['import_ms']:.3f}); the study written in {pacs_times['write']:.1f} s")
+    log(f"  after the import: watershed {ms['POST /api/watershed'][0]:.3f} ms; frames "
+        + ", ".join(f"{k.split(' ', 2)[2]} {v[0]:.3f}" for k, v in ms.items()
+                    if k.startswith("GET /api/slice")))
+    log(f"  launches below the server after the C-MOVE'd import: {launches}")
+    if dev.type == "cuda" and (min(launches["sweeps"].values()) <= 0 or any(
+            launches["rays"][k][a] <= 0 for k in RAY_FNS for a in (0, 1, 2))):
+        raise AssertionError(f"a kernel never launched below the server: {launches}")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    trackers = _tracker_sessions(dev, poses, tracker_s, fod_shape, roi_n, tracts)
+    grid = _grid_path(dev, grid_n)
+    mirror = _mirror_path(dev, tmp, n, fod_shape, roi_n, mirror_s, tracts)
+    scene = mirror["session"]["navigation.update_scene"]["count"] / mirror_s
+    log(f"  Navigation with the mirror on ({mirror_s:g} s): {scene:.1f} scene updates a "
+        "second" + (f" against phase [14]'s {scene_hz_14:.1f} without it"
+                    if scene_hz_14 is not None else "") + "; " + "; ".join(
+            f"{k.split('.')[1]} {v['count']} (median {v['median_ms'] or 0:.3f} ms, p95 "
+            f"{v['p95_ms'] or 0:.3f} ms)" for k, v in mirror["session"].items()
+            if k.startswith("navigation.")))
+    peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else 0.0
+    seconds = time.perf_counter() - t_phase
+    log(f"  peak device memory {peak:.2f} GiB; phase [16]: {seconds:.1f} s ({card})")
+    return {"pacs": pacs_times, "launches": launches, "trackers": trackers, "grid": grid,
+            "mirror": mirror, "peak_gib": peak, "seconds": seconds}
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -35,9 +35,8 @@ The batch flags of the reference's command line (reference app.py:391-518):
   --shell              after the batch steps (or beside --serve), an
                        interactive Python shell with the app's objects
   --use-pedal          connect a MIDI pedal (needs the mido package)
-
---remote-host needs net/remote_control.py, which the port does not have
-yet: it exits with a message naming it.
+  --remote-host H:P    mirror the event bus to a remote controller at H:P
+                       (net/remote_control.py; disconnected on every exit)
 """
 
 from __future__ import annotations
@@ -54,12 +53,6 @@ from invesalius3_tpu_torch.core.slice import Slice
 from invesalius3_tpu_torch.core.volume import Volume
 from invesalius3_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from invesalius3_tpu_torch.utils.i18n import tr
-
-# flags whose module is still to port: (argparse dest, what they need)
-_NOT_PORTED = {
-    "remote_host": "--remote-host needs net/remote_control.py",
-}
-
 
 def parse_command_line(argv=None) -> argparse.Namespace:
     """The JAX package's flags, every one of them."""
@@ -99,13 +92,6 @@ def parse_command_line(argv=None) -> argparse.Namespace:
     p.add_argument("--shell", action="store_true",
                    help="interactive Python shell after the batch steps")
     return p.parse_args(argv)
-
-
-def _refuse_not_ported(args) -> None:
-    for dest, need in _NOT_PORTED.items():
-        if getattr(args, dest) not in (None, False):
-            raise SystemExit(f"invesalius3_tpu_torch: {need}, which is not "
-                             "ported yet")
 
 
 def _dicom_groups(directory):
@@ -204,7 +190,6 @@ def main(argv=None, device=DEFAULT_DEVICE) -> int:
     """Run the batch flow of ``argv`` on ``device`` (the card unless "cpu");
     returns the exit status."""
     args = parse_command_line(argv)
-    _refuse_not_ported(args)
     device = resolve_device(device)
     if args.debug:
         events.subscribe(
@@ -223,7 +208,17 @@ def main(argv=None, device=DEFAULT_DEVICE) -> int:
     session.mark_running()
     if args.debug_efield:
         session.set_config("debug_efield", True)
+    remote = None
     try:
+        if args.remote_host:
+            from invesalius3_tpu_torch.net.remote_control import RemoteControl
+
+            host, _, port = args.remote_host.partition(":")
+            rc = RemoteControl(host, int(port or 5000))
+            rc.connect()
+            remote = rc
+            print(tr("remote control mirroring to {host}").format(host=args.remote_host),
+                  file=sys.stderr)
         if args.use_pedal:
             from invesalius3_tpu_torch.net.pedal_connection import PedalConnector
 
@@ -335,6 +330,8 @@ def main(argv=None, device=DEFAULT_DEVICE) -> int:
             run_shell(slc, project, session, volume)
         return 0
     finally:
+        if remote is not None:
+            remote.disconnect()
         session.exit()
 
 

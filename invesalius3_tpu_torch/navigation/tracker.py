@@ -1,6 +1,6 @@
 """Tracker abstraction + debug (fake) tracker backends (port of
-invesalius3_tpu/navigation/tracker.py; the hardware trackers' drivers,
-``navigation/serial_drivers.py``, are not ported yet).
+invesalius3_tpu/navigation/tracker.py; the hardware trackers' drivers are
+``navigation/serial_drivers.py``).
 
 Reference: invesalius/data/coordinates.py — per-vendor readers (Polaris,
 Optitrack, Polhemus, Claron, Camera, Robot...) polled by a
@@ -100,29 +100,62 @@ class CameraConnection(TrackerConnection):
                               bool(coil_vis)])
 
 
-_SERIAL_DRIVERS = {
-    TRACKER_POLHEMUS_SERIAL: "PolhemusSerialConnection",
-    TRACKER_POLARIS_NDI: "NDIPolarisConnection",
-    TRACKER_OPTITRACK: "OptitrackNatNetConnection",
-    TRACKER_CLARON: "ClaronConnection",
-}
-
-
 def create_tracker_connection(tracker_id: str, **kw) -> TrackerConnection:
-    """Reference tracker_connection.CreateTrackerConnection :562.  The
-    hardware trackers' drivers live in ``navigation/serial_drivers.py``,
-    which is not ported yet: asking for one raises, naming it."""
+    """Reference tracker_connection.CreateTrackerConnection :562.  A
+    hardware tracker opens its real transport (pyserial, the NatNet socket,
+    the pyclaron SDK) only when no ``transport=`` / ``transcript=`` /
+    ``frames=`` / ``poses=`` / ``sdk=`` is given."""
     if tracker_id == TRACKER_DEBUG_RANDOM:
         return DebugRandomConnection(**kw)
     if tracker_id == TRACKER_DEBUG_APPROACH:
         return DebugApproachConnection(**kw)
+    if tracker_id == TRACKER_POLHEMUS_SERIAL:
+        from invesalius3_tpu_torch.navigation.serial_drivers import (
+            PolhemusSerialConnection, PySerialTransport, ReplayTransport)
+
+        transport = kw.pop("transport", None)
+        if transport is None and "transcript" in kw:
+            transport = ReplayTransport(kw.pop("transcript"))
+        if transport is None:
+            transport = PySerialTransport(kw.pop("com_port"),
+                                          kw.pop("baud_rate", 115200))
+        return PolhemusSerialConnection(transport, **kw)
+    if tracker_id == TRACKER_POLARIS_NDI:
+        from invesalius3_tpu_torch.navigation.serial_drivers import (
+            NDIPolarisConnection, PySerialTransport, ReplayTransport)
+
+        transport = kw.pop("transport", None)
+        if transport is None and "transcript" in kw:
+            transport = ReplayTransport(kw.pop("transcript"))
+        if transport is None:
+            transport = PySerialTransport(kw.pop("com_port"),
+                                          kw.pop("baud_rate", 921600))
+        return NDIPolarisConnection(transport, **kw)
     if tracker_id == TRACKER_CAMERA:
         return CameraConnection(kw.pop("camera"))
-    if tracker_id in _SERIAL_DRIVERS:
-        raise NotImplementedError(
-            f"invesalius3_tpu_torch: tracker {tracker_id!r} needs "
-            f"navigation/serial_drivers.py ({_SERIAL_DRIVERS[tracker_id]}), "
-            "which is not ported yet")
+    if tracker_id == TRACKER_OPTITRACK:
+        from invesalius3_tpu_torch.navigation.serial_drivers import (
+            OptitrackNatNetConnection, ReplayDatagramTransport,
+            UDPDatagramTransport)
+
+        transport = kw.pop("transport", None)
+        if transport is None and "frames" in kw:
+            transport = ReplayDatagramTransport(kw.pop("frames"))
+        if transport is None:
+            transport = UDPDatagramTransport(kw.pop("port", 1511))
+        return OptitrackNatNetConnection(transport, **kw)
+    if tracker_id == TRACKER_CLARON:
+        from invesalius3_tpu_torch.navigation.serial_drivers import (
+            ClaronConnection, ReplayMTC)
+
+        sdk = kw.pop("sdk", None)
+        if sdk is None and "poses" in kw:
+            sdk = ReplayMTC(kw.pop("poses"))
+        if sdk is None:  # the real closed-SDK wrapper, when installed
+            import pyclaron  # pragma: no cover
+
+            sdk = pyclaron.pyclaron()
+        return ClaronConnection(sdk)
     raise ValueError(
         f"tracker {tracker_id!r} not available in this build (vendor SDKs "
         f"are hardware-gated); available: {TRACKERS}"

@@ -110,8 +110,10 @@ lies on, inside ``torch.cuda.device`` of it on the card, on the default
 stream.  The volume never comes to the host whole: a frame copies its RGB
 plane, a density measure its one plane, the brick its downsampled copy.
 Each thread hands over only finished results (a host array, or a tensor
-after the device has synchronised).  The PACS endpoints answer 501 until
-``net/dicom_net.py`` is ported.
+after the device has synchronised).  ``/api/pacs/move`` imports the
+retrieved study onto the Slice's device and, as ``/api/import`` does,
+warms the new volume's shear-warp cache (the JAX server's move leaves the
+previous volume's cache in place).
 """
 
 from __future__ import annotations
@@ -141,11 +143,6 @@ VIEWER_ROOT = Path(__file__).resolve().parent / "viewer"
 # State-changing POSTs logged to the /api/log ring, except these
 # high-frequency interaction paths (drag gestures, wheel windowing).
 _LOG_QUIET_POSTS = {"/api/brush", "/api/window", "/api/pedal"}
-
-# endpoints whose module is still to port: they answer 501 naming it
-_NOT_PORTED = {"/api/pacs/echo": "net/dicom_net.py",
-               "/api/pacs/find": "net/dicom_net.py",
-               "/api/pacs/move": "net/dicom_net.py"}
 
 
 def on_device(dev: torch.device):
@@ -354,6 +351,17 @@ def histogram_counts(data: torch.Tensor, edges: np.ndarray) -> np.ndarray:
 
 def _visible_voxels(mask) -> int:
     return int(mask.visible_array().sum())
+
+
+def _pacs_client(body: dict):
+    """DicomNet from a request body (reference import_network_panel.py
+    host/port/AE-title fields)."""
+    from invesalius3_tpu_torch.net.dicom_net import DicomNet
+
+    return DicomNet(
+        body["host"], int(body.get("port", 104)),
+        aetitle_call=body.get("aetitle_call", "ANYSCP"),
+        aetitle=body.get("aetitle", "INVESALIUS"))
 
 
 def _png_bytes(rgb: np.ndarray) -> bytes:
@@ -934,10 +942,7 @@ def make_handler(state: AppState):
 
         def _post(self, slc, body):
                 dev = state.device
-                if self.path in _NOT_PORTED:
-                    self._json({"error": f"{self.path} needs "
-                                f"{_NOT_PORTED[self.path]} (not ported yet)"}, 501)
-                elif self.path == "/api/window":
+                if self.path == "/api/window":
                     slc.set_window(float(body["ww"]), float(body["wl"]))
                     self._json({"ww": slc.window_width, "wl": slc.window_level})
                 elif self.path == "/api/projection":
@@ -2001,6 +2006,55 @@ def make_handler(state: AppState):
                     if job is not None:
                         job.stop()
                     self._json({"ok": True})
+                elif self.path == "/api/pacs/echo":
+                    # PACS verification (reference import_network_panel.py
+                    # "check status" -> dicom.py RunCEcho)
+                    net = _pacs_client(body)
+                    self._json({"ok": bool(net.RunCEcho(
+                        timeout=float(body.get("timeout", 5.0))))})
+                elif self.path == "/api/pacs/find":
+                    # study query (reference import_network_panel.py
+                    # OnButtonSearch -> dicom.py RunCFind)
+                    net = _pacs_client(body)
+                    results = net.RunCFind(
+                        patient_name=body.get("patient_name", "*"),
+                        level=body.get("level", "STUDY"),
+                        timeout=float(body.get("timeout", 10.0)))
+                    self._json([
+                        {k: (v if isinstance(v, (str, int, float)) else repr(v))
+                         for k, v in r.items()} for r in results])
+                elif self.path == "/api/pacs/move":
+                    # retrieve a study into a local folder, then import its
+                    # largest series onto the Slice's device (reference
+                    # import_network_panel.py OnUpload -> dicom.py RunCMove
+                    # -> Controller import flow)
+                    from pathlib import Path as _P
+
+                    net = _pacs_client(body)
+                    dest = _P(body["dest"])
+                    dest.mkdir(parents=True, exist_ok=True)
+                    files = net.RunCMove(
+                        body["study_uid"], dest,
+                        listen_port=int(body.get("listen_port", 0)),
+                        timeout=float(body.get("timeout", 30.0)))
+                    out = {"files": [str(f) for f in files]}
+                    if body.get("import", True) and files:
+                        from invesalius3_tpu_torch.core.volume import Volume
+                        from invesalius3_tpu_torch.io import dicom as dcm
+
+                        state._dicom_cache = None
+                        groups = state.dicom_groups(str(dest))
+                        g = max(groups, key=lambda g: len(g.files))
+                        data, spacing, affine = dcm.group_to_volume(g, device=dev)
+                        slc.load_new_volume(Volume.from_tensor(
+                            data, spacing=spacing, affine=affine,
+                            modality=g.files[0].get("Modality", "CT")))
+                        state.surfaces = {}
+                        state.mesh_bin_cache.clear()
+                        state.crop_box = None
+                        state.warm_render_cache()
+                        out["shape"] = list(slc.volume.shape)
+                    self._json(out)
                 elif self.path == "/api/i18n":
                     # switch UI language at runtime (reference
                     # language_dialog.py + session SetLanguage)

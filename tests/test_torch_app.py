@@ -17,6 +17,7 @@ float16 step (see test_torch_surface_project.py).
 
 import plistlib
 import tarfile
+import time
 from pathlib import Path
 
 import numpy as np
@@ -24,6 +25,7 @@ import pytest
 import torch
 
 from invesalius3_tpu import app as app_jax
+from invesalius3_tpu import events as events_jax
 from invesalius3_tpu.core import surface as surface_jax
 from invesalius3_tpu.core.mask import Mask as MaskJax
 from invesalius3_tpu.io import mesh_io as mesh_io_jax
@@ -32,6 +34,7 @@ from invesalius3_tpu_torch import app, convert, events
 from invesalius3_tpu_torch.core import surface
 from invesalius3_tpu_torch.core.mask import Mask
 from invesalius3_tpu_torch.io import mesh_io
+from invesalius3_tpu_torch.net.remote_server import RemoteEventServer
 
 torch.set_num_threads(1)
 SPACING = (0.5, 0.6, 0.7)
@@ -210,14 +213,69 @@ def test_reopen_saved_project(tmp_path, monkeypatch, ct_file):
     assert (tmp_path / "port.stl").read_bytes() == (tmp_path / "jax.stl").read_bytes()
 
 
+def _mirrored(tmp_path, monkeypatch, flag):
+    """(the events each app mirrors with ``flag`` host:port to its own
+    RemoteEventServer, the topics its bus hook was handed) for one import,
+    threshold and export."""
+    out = {}
+    for name, main, bus in (("port", lambda a: app.main(a, device="cpu"), events.bus),
+                            ("jax", app_jax.main, events_jax.bus)):
+        monkeypatch.setattr(Mask, "general_index", -1)
+        monkeypatch.setattr(MaskJax, "general_index", -1)
+        monkeypatch.setattr(surface.Surface, "_counter", [-1])
+        monkeypatch.setattr(surface_jax.Surface, "_counter", [-1])
+        handed, add = [], bus.add_send_message_hook
+
+        def recording(hook, handed=handed, add=add):
+            add(lambda topic, kw: (handed.append(topic), hook(topic, kw)))
+
+        monkeypatch.setattr(bus, "add_send_message_hook", recording)
+        srv = RemoteEventServer().start()
+        try:
+            assert main(["--import-file", str(tmp_path / "ct.nii"), "-t", "Bone", "-e",
+                         str(tmp_path / f"{name}.stl"), flag, f"127.0.0.1:{srv.port}"]) == 0
+            assert bus._hook is None  # disconnected on the way out
+            deadline = time.monotonic() + 20
+            while len(srv.received) < len(handed) and time.monotonic() < deadline:
+                time.sleep(0.02)
+        finally:
+            srv.stop()
+        out[name] = (srv.received, handed)
+    return out
+
+
 @pytest.mark.parametrize("argv,module", [
     (["--remote-host", "localhost:5000"], "net/remote_control.py"),
 ])
-def test_flags_still_to_port_exit_naming_the_module(tmp_path, monkeypatch, argv, module):
+def test_flags_still_to_port_exit_naming_the_module(tmp_path, monkeypatch, ct_file, argv,
+                                                    module):
+    """No flag is left to port: ``--remote-host`` (``module``) runs, and
+    mirrors the same events as the JAX app's to a RemoteEventServer."""
+    assert not hasattr(app, "_NOT_PORTED") and not hasattr(app, "_refuse_not_ported")
+    got = _mirrored(tmp_path, monkeypatch, argv[0])
+    assert module == "net/remote_control.py"
+    assert got["port"] == got["jax"]
+    received, handed = got["port"]
+    assert [m["topic"] for m in received] == handed == ["slice.volume_set",
+                                                        "slice.mask_added"]
+
+
+def test_remote_host_disconnects_when_the_run_fails(tmp_path, monkeypatch):
+    """The mirror's bus hook goes on every exit path: a failed import leaves
+    no hook behind for the next app.main in the process."""
     monkeypatch.setenv("XDG_CONFIG_HOME", str(tmp_path))
-    with pytest.raises(SystemExit, match=module.replace(".", r"\.")):
-        app.main(argv, device="cpu")
-    assert set(app._NOT_PORTED) == {"remote_host"}
+    srv = RemoteEventServer().start()
+    try:
+        with pytest.raises(Exception):
+            app.main(["--import-file", str(tmp_path / "missing.nii"),
+                      "--remote-host", f"127.0.0.1:{srv.port}"], device="cpu")
+        assert events.bus._hook is None
+    finally:
+        srv.stop()
+    with pytest.raises(ConnectionRefusedError):
+        app.main(["--import-file", str(tmp_path / "missing.nii"),
+                  "--remote-host", f"127.0.0.1:{srv.port}"], device="cpu")
+    assert events.bus._hook is None
 
 
 def _started_servers(monkeypatch):

@@ -81,3 +81,45 @@ def test_server_and_catalogs_read_only_the_ports_files():
     assert dirs and all(d.resolve().is_relative_to(PORT) for d in dirs)
     assert len(list(dirs[0].glob("*/LC_MESSAGES/invesalius3_tpu.po"))) == 24
     assert len(list(dirs[0].glob("*/LC_MESSAGES/invesalius3_tpu.mo"))) == 24
+
+
+NETWORK_MODULES = ["net/dicom_net.py", "net/neuronavigation_api.py", "net/remote_control.py",
+                   "net/remote_server.py", "navigation/vendor_coords.py",
+                   "navigation/serial_port.py", "navigation/serial_drivers.py",
+                   "navigation/grid.py"]
+
+
+@pytest.mark.parametrize("rel", NETWORK_MODULES)
+def test_the_scan_covers_the_network_slice(rel):
+    path = PORT / rel
+    assert path in SOURCES, rel
+    assert not [n for _, n in _imported_top_names(path) if n in FORBIDDEN]
+
+
+def test_the_scan_sees_imports_inside_functions(tmp_path):
+    """``DicomNet.RunCFind`` imports the DICOM parser inside the function:
+    the scan finds that import (the port's own ``io/dicom``), and would
+    flag the JAX package's there."""
+    src = (PORT / "net/dicom_net.py").read_text()
+    run_cfind = next(n for n in ast.walk(ast.parse(src))
+                     if isinstance(n, ast.FunctionDef) and n.name == "RunCFind")
+    lazy = [n.module for n in ast.walk(run_cfind) if isinstance(n, ast.ImportFrom)]
+    assert lazy == ["invesalius3_tpu_torch.io.dicom"]
+    bad = tmp_path / "dicom_net.py"
+    bad.write_text(src.replace("from invesalius3_tpu_torch.io.dicom import",
+                               "from invesalius3_tpu.io.dicom import"))
+    assert [n for _, n in _imported_top_names(bad) if n in FORBIDDEN] == ["invesalius3_tpu"]
+
+
+def test_only_parallel_is_left_to_port():
+    """Every JAX module has a counterpart of the same path in the port but
+    the multi-device ``parallel/`` package, the Pallas kernels (the CUDA
+    sources in ``csrc/``) and ``native/`` (``native.py`` and ``csrc/``)."""
+    jax_pkg = ROOT / "invesalius3_tpu"
+    missing = sorted(str(p.relative_to(jax_pkg)) for p in jax_pkg.rglob("*.py")
+                     if not (PORT / p.relative_to(jax_pkg)).is_file())
+    assert missing == ["native/__init__.py", "ops/pallas_kernels.py", "parallel/__init__.py",
+                       "parallel/distributed.py", "parallel/mesh_utils.py",
+                       "parallel/sharded_ops.py"]
+    assert (PORT / "native.py").is_file()
+    assert {"watershed_sweep.cu", "ray_projections.cu"} <= {p.name for p in (PORT / "csrc").iterdir()}

@@ -3,8 +3,9 @@ navigation test cases (tests/test_navigation.py: the tracker, pose math,
 the session with its tract and e-field workers, markers, the robot, the
 hub, state persistence and MEP mapping), and against the JAX package on the
 same inputs: pose math within 1e-12, e-field norms and MEP interpolation
-within 1e-5 (float32 on both sides).  The hardware trackers, whose drivers
-are not ported, raise naming ``navigation/serial_drivers.py``.  Every test
+within 1e-5 (float32 on both sides).  The hardware trackers build their
+drivers (``navigation/serial_drivers.py``) from replays; the robot and the
+e-field worker talk through the real ``NeuronavigationApi``.  Every test
 that starts a thread stops and joins it."""
 
 import csv
@@ -34,7 +35,10 @@ from invesalius3_tpu_torch.navigation.tracker import (
     TRACKER_CAMERA, TRACKER_CLARON, TRACKER_DEBUG_APPROACH, TRACKER_DEBUG_RANDOM,
     TRACKER_OPTITRACK, TRACKER_POLARIS_NDI, TRACKER_POLHEMUS_SERIAL, Tracker,
     create_tracker_connection)
+from invesalius3_tpu_torch.net.neuronavigation_api import NeuronavigationApi
 from invesalius3_tpu_torch.ops import transforms as tr
+
+import chip_smoke
 
 torch.set_num_threads(1)
 
@@ -73,12 +77,29 @@ def test_debug_connections_match_jax(tracker_id):
 @pytest.mark.parametrize("tracker_id", [TRACKER_POLHEMUS_SERIAL, TRACKER_POLARIS_NDI,
                                         TRACKER_OPTITRACK, TRACKER_CLARON])
 def test_hardware_trackers_raise_not_ported(tracker_id):
-    with pytest.raises(NotImplementedError, match="navigation/serial_drivers.py"):
-        create_tracker_connection(tracker_id, transcript=b"")
+    """Each hardware id builds its driver from a replay (no tracker id is
+    refused any more), and the JAX factory builds the same driver; through
+    ``Tracker.connect`` the poll thread serves the replayed poses."""
+    kw, want = chip_smoke.hardware_replays(12)[tracker_id]
+    conn = create_tracker_connection(tracker_id, **kw)
+    conn_jax = tracker_jax.create_tracker_connection(tracker_id, **kw)
+    assert type(conn).__name__ == type(conn_jax).__name__
+    assert conn.connect() and conn_jax.connect()
+    for k in range(3):
+        (c, f), (cj, fj) = conn.get_coordinates(), conn_jax.get_coordinates()
+        np.testing.assert_array_equal(c, cj)
+        np.testing.assert_array_equal(f, fj)
+        np.testing.assert_array_equal(c, want[k][0])
     t = Tracker()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        t.connect(tracker_id)
-    assert not t.connected and t._receiver is None
+    try:
+        assert t.connect(tracker_id, poll_hz=500, **kw)
+        assert _wait(lambda: t.get_coordinates()[1][0])
+        c, _ = t.get_coordinates()
+        assert any(np.array_equal(c, w) for w, _ in want)
+    finally:
+        receiver = t._receiver
+        t.disconnect()
+    assert not t.connected and not receiver.is_alive()
 
 
 def test_unknown_tracker_raises():
@@ -272,14 +293,15 @@ def test_robot_target_flow():
     nav.use_dynamic_reference = False
     calls = []
 
-    class FakeApi:  # the NeuronavigationApi surface the robot calls
-        def set_robot_objective(self, robot_id, objective):
+    class FakeConnection:  # the external robot controller behind the API
+        def set_objective(self, robot_id, objective):
             calls.append(("objective", robot_id, objective))
 
-        def set_robot_target(self, robot_id, target):
+        def update_robot_target(self, robot_id, target):
             calls.append(("target", robot_id, target))
 
-    robot = Robots(api=FakeApi(), bus=bus).get("r0")
+    api = NeuronavigationApi(connection=FakeConnection(), bus=bus)
+    robot = Robots(api=api, bus=bus).get("r0")
     robot.set_objective(RobotObjective.TRACK_TARGET)
     m_trk = robot.send_target(nav, np.array([10.0, 20.0, 30.0, 0.0, 0.0, 0.0]))
     nav.tracker.disconnect()
@@ -405,12 +427,13 @@ def test_efield_thread_compute_once():
 def test_efield_thread_calls_the_solver_api():
     calls = []
 
-    class Solver:
-        def update_efield_vector_roi_max(self, **kw):
+    class Solver:  # the external e-field solver behind the API
+        def update_efield_vectorROIMax(self, **kw):
             calls.append(kw)
             return [1.0, 3.0, 2.0]
 
-    th = efield.VisualizeEFieldThread(queue.Queue(), api=Solver(), roi_ids=np.arange(3),
+    api = NeuronavigationApi(connection=Solver(), bus=events.Publisher())
+    th = efield.VisualizeEFieldThread(queue.Queue(), api=api, roi_ids=np.arange(3),
                                       bus=events.Publisher(), device="cpu")
     m = np.eye(4)
     m[:3, 3] = [1, 2, 3]

@@ -1,8 +1,7 @@
 """The port's viewer server (``invesalius3_tpu_torch.server``) end to end on
 the CPU: the JAX package's server tests (tests/test_server.py) run against
 it, with ``device="cpu"``, on the same 16x24x24 phantom.  The session and
-the translations write under a temporary ``XDG_CONFIG_HOME``.  The PACS
-endpoints answer 501 naming net/dicom_net.py until that module is ported.
+the translations write under a temporary ``XDG_CONFIG_HOME``.
 DICOM series are written by the JAX test helper ``tests.test_io._make_series``."""
 
 import json
@@ -1170,18 +1169,27 @@ def test_log_endpoint_and_export(server):
 
 
 @pytest.mark.parametrize("endpoint", ["echo", "find", "move"])
-def test_pacs_endpoints_refuse_until_dicom_net_is_ported(server, endpoint):
-    """The PACS endpoints answer 501 naming the module they need
-    (net/dicom_net.py), instead of the JAX server's DicomNet result."""
+def test_pacs_endpoints_refuse_until_dicom_net_is_ported(server, endpoint, tmp_path):
+    """The PACS endpoints reach DicomNet as the JAX server's do
+    (tests/test_server.py:1148): with nothing listening, echo is false,
+    find empty, and move an error naming the refused connection, and the
+    served volume stays."""
     import urllib.error
 
-    with pytest.raises(urllib.error.HTTPError) as exc:
-        _post(server, f"/api/pacs/{endpoint}",
-              {"host": "127.0.0.1", "port": 1, "timeout": 0.5})
-    assert exc.value.code == 501
-    body = json.loads(exc.value.read())
-    assert body == {"error": f"/api/pacs/{endpoint} needs net/dicom_net.py "
-                             "(not ported yet)"}
+    import chip_smoke
+
+    body = {"host": "127.0.0.1", "port": chip_smoke._free_port(), "timeout": 0.5}
+    volume = server.state.slice.volume
+    if endpoint == "move":
+        with pytest.raises(urllib.error.HTTPError) as exc:
+            _post(server, "/api/pacs/move", {**body, "study_uid": "1.2.3",
+                                             "dest": str(tmp_path / "moved")})
+        assert exc.value.code == 500
+        assert "ConnectionRefusedError" in json.loads(exc.value.read())["error"]
+    else:
+        code, out = _post(server, f"/api/pacs/{endpoint}", body)
+        assert code == 200 and out == ({"ok": False} if endpoint == "echo" else [])
+    assert server.state.slice.volume is volume
 
 
 def test_i18n_language_switch(server):

@@ -325,10 +325,38 @@ def test_event_topics(pair):
     assert got == want and "mask.created" in got
 
 
-def test_pacs_refused_by_the_port_only(pair):
-    import urllib.error
+def test_pacs_refused_by_the_port_only(pair, tmp_path):
+    """The PACS endpoints answer as the JAX server's (the port refuses
+    nothing now): echo and find to a dead port, then a C-MOVE from a
+    mini-PACS without the import (the walkthrough's volume stays)."""
+    import chip_smoke
+    from invesalius3_tpu_torch.io import dicom
 
-    port, _ = pair
-    with pytest.raises(urllib.error.HTTPError) as exc:
-        _post(port, "/api/pacs/find", {"host": "127.0.0.1", "port": 1})
-    assert exc.value.code == 501
+    dead = {"host": "127.0.0.1", "port": chip_smoke._free_port(), "timeout": 2.0}
+    assert _both_post(pair, "/api/pacs/echo", dead) == ({"ok": False}, {"ok": False})
+    assert _both_post(pair, "/api/pacs/find", dead) == ([], [])
+    paths = []
+    for i in range(3):
+        paths.append(tmp_path / f"s{i}.dcm")
+        dicom.write_dicom(paths[-1], np.full((4, 4), i, np.int16), {
+            "PatientName": "P^Q", "PatientID": "PQ", "StudyInstanceUID": "4.5.6",
+            "SeriesInstanceUID": "4.5.6.1", "SOPInstanceUID": f"4.5.6.1.{i}",
+            "Modality": "CT", "InstanceNumber": i + 1})
+    row = {"PatientName": "P^Q", "PatientID": "PQ", "StudyInstanceUID": "4.5.6",
+           "StudyDate": "", "StudyDescription": "S"}
+    moved = []
+    for name, srv in zip(("port", "jax"), pair):
+        store_port = chip_smoke._free_port()
+        pacs = chip_smoke.MiniPACS(list(chip_smoke.pacs_instances(paths).items()), row,
+                                   store_port, timeout=10.0).start()
+        try:
+            code, out = _post(srv, "/api/pacs/move", {
+                "host": "127.0.0.1", "port": pacs.port, "study_uid": "4.5.6",
+                "dest": str(tmp_path / name), "listen_port": store_port, "timeout": 10.0,
+                "import": False})
+        finally:
+            pacs.stop()
+        assert code == 200
+        moved.append(sorted(f.rsplit("/", 1)[1] for f in out["files"]))
+    assert moved[0] == moved[1] and len(moved[0]) == 3
+    assert [s.state.slice.volume.shape for s in pair][0] == SHAPE
