@@ -11,13 +11,18 @@ Phases, each fatal on failure (no phase catches an error):
 2. holds the sweep kernel against its plain PyTorch version, bit for bit,
    for axes 0, 1, 2 with int16 and int32 labels, on 64^3 and the edge
    shapes of ``kernels.SWEEP_CHECK_SHAPES`` (an even and an odd x, rays
-   many tiles long, rays of length 1 and 2);
+   many tiles long, rays of length 1 and 2, and the sharded watershed's
+   ghost-padded slabs (3, 512, 512) and (66, 512, 512));
 3. runs the segmentation-to-STL flow at 128^3 through the kernel and
    through the plain sweep, and the two-level multigrid watershed at 128^3
-   through both: labels, refine rounds and STL bytes must be identical;
+   through both: labels, refine rounds and STL bytes must be identical,
+   and the streamed STL (``DeviceFaceStream``) the bytes of ``write_stl``
+   of the host mesh;
 4. runs the flow at 512^3 (bench.py's phantom and markers, spacing 0.5 mm)
    once to warm up and once timed, with the kernel's launch counts reset
-   just before the timed run; checks the STL size and counts, the refine
+   just before the timed run (the face table streams to the host while the
+   mesh is smoothed; its STL time is printed beside PR 3's one-copy
+   0.250 s); checks the STL size and counts, the refine
    rounds per level, a closed oriented mesh and finite vertices; then once
    more with every sweep launch between CUDA events and its changed
    elements counted (``SweepRecorder``): per-axis kernel ms in the flow,
@@ -223,6 +228,26 @@ Phases, each fatal on failure (no phase catches an error):
    recorded, an injected event on the app's bus) and a 2 s ``Navigation``
    with the mirror on, its scene rate beside phase [14]'s; the peak memory
    beside the card's name and power limit.
+17. drives the sharded flow over a shard list (``sharded_phase``) on
+   ``make_mesh(8)`` (8 shards on the one card): the small cases of
+   tests/test_parallel.py (the 64^3 two-basin watershed at levels 2 with
+   both stopping rules, the rod floodfill, dilation in 6 and 26
+   connectivity, the active-cell count, a sphere shell's surface uniform
+   and balanced, raw and smoothed, its ``write_stl_sharded`` bytes) on the
+   card and the CPU, equal (smoothed vertices within 1e-4 mm); the sharded
+   watershed at 128^3 with 3 levels through the kernel and through the
+   plain sweep (labels and rounds identical); then ``pipeline.run(
+   make_ct(512), bench_markers(512), out, shards=mesh)`` once to warm up
+   and once timed, the sweep counts reset just before it: labels against
+   the single-device watershed (every differing voxel a cost tie, found by
+   the sweeps iterated to each marker's minimax costs; under 1% differ),
+   3 levels (4 refines), the balanced cuts, the vertex and triangle counts
+   of ``mask_to_surface_device`` on the same mask, the smoothed vertices
+   within 1e-4 mm of ``ca_smoothing_device``, the face set, the STL bytes
+   of ``write_stl`` of the assembled mesh, the sweep launches per shard
+   and axis above 0; it prints the stage times beside phase [4]'s, the
+   peak, the rounds and halo bytes per level and the cuts.  With more than
+   one card it runs the flow once more on one shard a card.
 
 It prints the card's name and power limit first, a JSON line of the
 kernels before the last line, and as the last line
@@ -260,8 +285,11 @@ from invesalius3_tpu_torch.net import download
 from invesalius3_tpu_torch.ops import (connected, floodfill, kernels, mesh, morphology,
                                        rasterize, raycast, render_mesh, reslice, resize,
                                        transforms, watershed)
+from invesalius3_tpu_torch.ops import marching
 from invesalius3_tpu_torch.ops import projection_kernels as rays
 from invesalius3_tpu_torch.ops import threshold as thr_ops
+from invesalius3_tpu_torch.parallel import sharded_ops
+from invesalius3_tpu_torch.parallel.mesh_utils import make_mesh
 from invesalius3_tpu_torch.utils import paths
 
 import time_rays as time_rays_lib
@@ -462,7 +490,7 @@ def main() -> int:
     check_sweep_kernel(dev)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
-        launches, times = run_flows(dev, Path(d))
+        launches, times, times_4 = run_flows(dev, Path(d))
 
     errs = {(k, a): 0.0 for k in RAY_FNS for a in (0, 1, 2)}
     log("[6] ray kernels vs plain versions")
@@ -494,11 +522,18 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_net_") as d:
         network_and_trackers_phase(dev, Path(d), scene_hz_14=nav["session"][
             "navigation.update_scene"]["count"] / nav["session"]["seconds"])
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_") as d:
+        sharded = sharded_phase(dev, Path(d), times_4=times_4)
 
+    # the sweeps' launches on the main paths: the single-device flow of
+    # phase [4] and the sharded flow of phase [17], each counted from 0
     entries = [
         {"name": f"watershed_sweep[axis={axis}]", "route": "cuda",
          "source": KERNEL_SOURCE, "replaces": REPLACES[axis],
-         "launches": launches[axis], **times[axis]}
+         "launches": launches[axis] + sharded["launches"][axis],
+         "launches_by_phase": {"4": launches[axis], "17": sharded["launches"][axis]},
+         **times[axis]}
         for axis in (0, 1, 2)]
     entries += [
         {"name": f"{k}_axis0[axis={axis}]", "route": "cuda", "source": RAY_SOURCE,
@@ -514,7 +549,7 @@ def main() -> int:
 
 def run_flows(dev, tmp: Path):
     """Phases 3 to 5; returns (launch counts of the timed 512^3 run, sweep
-    timings per axis)."""
+    timings per axis, that run's stage seconds)."""
     log("[3] 128^3 flow: kernel vs plain sweep")
     ct, markers = pipeline.make_ct(128), pipeline.bench_markers(128)
     rounds_k, rounds_p = [], []
@@ -532,6 +567,10 @@ def run_flows(dev, tmp: Path):
             and torch.equal(mk.verts3v, mp.verts3v)
             and (tmp / "k128.stl").read_bytes() == (tmp / "p128.stl").read_bytes()):
         raise AssertionError("128^3 meshes differ between kernel and plain")
+    # the streamed export (DeviceFaceStream) writes the one-copy path's bytes
+    mesh_io.write_stl(tmp / "copy128.stl", *marching.mesh_to_host(mk))
+    if (tmp / "k128.stl").read_bytes() != (tmp / "copy128.stl").read_bytes():
+        raise AssertionError("the streamed STL differs from write_stl of the host mesh")
     check_mesh(res_k.mesh)
     # the flow's 128^3 watershed is the plain fixpoint (no multigrid below
     # 192 a side); the two-level multigrid is held here too, rounds and all
@@ -566,7 +605,12 @@ def run_flows(dev, tmp: Path):
     launches = dict(kernels.LAUNCHES)
     log(f"  timed run: {total:.3f} s; stages (s): "
         + ", ".join(f"{k} {v:.4f}" for k, v in res.times.items()))
+    log(f"  STL through DeviceFaceStream (faces copied while smoothing): "
+        f"{res.times['stl']:.4f} s (PR 3's one-copy path: 0.250 s)")
+    times_4 = dict(res.times)
     log(f"  peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log("  export of the timed run's mesh, in turns (s): " + ", ".join(
+        f"{k} {v}" for k, v in export_turns(res.mesh, tmp).items()))
     log(f"  refine rounds per level (shape, rounds): {rounds}")
     log(f"  sweep launches: {launches}")
     n_verts, n_tris = res.mesh.n_verts, res.mesh.n_tris
@@ -606,7 +650,30 @@ def run_flows(dev, tmp: Path):
     log("[5] sweep kernel vs plain at 512^3")
     times = time_sweeps(dev, 512, np.int32)
     time_sweeps(dev, 512, np.int16)
-    return launches, times
+    return launches, times, times_4
+
+
+def export_turns(dm, tmp: Path, pairs: int = 3) -> dict:
+    """Seconds of the two STL exports of one device mesh, in turns (the
+    first of each pair alternates): the streamed ``write_stl_from_device``
+    (faces and vertices copied on threads, records packed as they come; its
+    stream started at the call, so nothing overlaps smoothing here) and the
+    one-copy path (``mesh_to_host``, then ``write_stl``).  Their bytes must
+    be equal."""
+    paths = {"stream": tmp / "stream.stl", "one-copy": tmp / "copy.stl"}
+    runs = {"stream": lambda: mesh_io.write_stl_from_device(paths["stream"], dm),
+            "one-copy": lambda: mesh_io.write_stl(paths["one-copy"], *marching.mesh_to_host(dm))}
+    times = {k: [] for k in runs}
+    for i in range(pairs):
+        for k in (("stream", "one-copy") if i % 2 == 0 else ("one-copy", "stream")):
+            t0 = time.perf_counter()
+            runs[k]()
+            times[k].append(round(time.perf_counter() - t0, 4))
+    if paths["stream"].read_bytes() != paths["one-copy"].read_bytes():
+        raise AssertionError("the streamed STL differs from the one-copy path's")
+    for path in paths.values():
+        path.unlink()
+    return times
 
 
 def profile_flow(dev, ct, markers, out: Path) -> None:
@@ -4162,6 +4229,334 @@ def network_and_trackers_phase(dev, tmp: Path, n: int = NET_N, second: int = NET
     log(f"  peak device memory {peak:.2f} GiB; phase [16]: {seconds:.1f} s ({card})")
     return {"pacs": pacs_times, "launches": launches, "trackers": trackers, "grid": grid,
             "mirror": mirror, "peak_gib": peak, "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the sharded flow over a shard list
+# ---------------------------------------------------------------------------
+
+SHARDED_N = 512  # the sharded flow's CT side (phase 17)
+N_SHARDS = 8  # bench.py's sharded branch: 8 Z-slabs (on one card, 8 shards on it)
+SMOOTH_TOL = 1e-4  # mm, smoothed vertices against the single-device smoothing
+SMALL_SMOOTH = {"t": 0.7, "tmax": 3.0, "bmin": 0.5, "n_iters": 4}
+
+
+def ws_volume(n: int = 64, seed: int = 3):
+    """Two basins separated by a bright ridge over a noise floor
+    (tests/test_parallel.py's watershed volume)."""
+    rng = np.random.default_rng(seed)
+    zz, yy, xx = np.mgrid[:n, :n, :n].astype(np.float32)
+    ridge = np.exp(-((xx - n / 2) ** 2) / 8.0) * 900
+    bowl = ((zz - n / 2) ** 2 + (yy - n / 2) ** 2) / n
+    vol = (ridge + bowl + rng.integers(0, 5, (n, n, n))).astype(np.int16)
+    markers = np.zeros((n, n, n), np.int16)
+    markers[n // 2, n // 2, n // 6] = 1
+    markers[n // 2, n // 2, 5 * n // 6] = 2
+    return vol, markers
+
+
+def _shell(n: int, r_in: float, r_out: float, cut=None) -> np.ndarray:
+    zz, yy, xx = np.mgrid[:n, :n, :n]
+    c = n / 2
+    r = np.sqrt((zz - c) ** 2 + (yy - c) ** 2 + (xx - c) ** 2)
+    m = ((r < r_out) & (r > r_in)).astype(np.uint8) * 255
+    if cut is not None:
+        m[cut:] = 0
+    return m
+
+
+def parallel_sequence(shards, tmp: Path, n: int = 64) -> dict:
+    """The small cases of tests/test_parallel.py through the port's sharded
+    ops on ``shards`` (a mesh): host results by case (labels and rounds, masks,
+    counts, cuts, vertices, faces and STL bytes)."""
+    out = {}
+    vol, markers = ws_volume(n)
+    for alg, stop in (("Watershed", "rank"), ("Watershed (IFT)", "label")):
+        lab, rounds = sharded_ops.sharded_watershed(
+            shards, levels=2, stop=stop, quiet_rounds=1 if stop == "rank" else 2)(
+            vol, markers, algorithm=alg, debug_rounds=True)
+        out[f"watershed {alg} {stop}"] = (lab.gather().cpu().numpy(), rounds)
+    rod = np.full((4 * shards.size, 8, 8), -1000, np.int16)
+    rod[:, 4, 4] = 1500
+    seeds = np.zeros(rod.shape, bool)
+    seeds[0, 4, 4] = True
+    reached = sharded_ops.sharded_floodfill_threshold(shards, morphology.structure_3d(6))(
+        rod, seeds, 1200, 3000).gather().cpu().numpy()
+    if not (reached[:, 4, 4].all() and reached.sum() == rod.shape[0]):
+        raise AssertionError("the rod's floodfill did not cross every shard")
+    out["floodfill rod"] = reached
+    for conn, shape, seed, p in ((6, (16, 16, 16), 0, 0.8), (26, (16, 12, 12), 1, 0.85)):
+        x = np.random.default_rng(seed).random(shape) > p
+        out[f"dilation {conn}"] = sharded_ops.sharded_binary_dilation(
+            shards, morphology.structure_3d(conn))(x).gather().cpu().numpy()
+    block = np.zeros((32, 16, 16), bool)
+    block[10:20, 4:10, 4:10] = True
+    out["active cells"] = sharded_ops.sharded_active_cell_count(shards)(block)
+    shell = _shell(32, 6, 11)
+    dev = shards.devices.ravel()[0]
+    for balance in (False, True):
+        for smooth in (None, SMALL_SMOOTH):
+            key = f"surface {'balanced' if balance else 'uniform'} " + (
+                "smoothed" if smooth else "raw")
+            spacing = (0.5, 0.7, 1.1)  # the JAX tests' anisotropic spacing
+            v, f, st = sharded_ops.sharded_mask_to_surface(
+                shards, shell, spacing=spacing, smooth=smooth, balance=balance,
+                return_stats=True)
+            vsh, fsh, _, _ = sharded_ops.sharded_mask_to_surface(
+                shards, shell, spacing=spacing, smooth=smooth, balance=balance,
+                return_parts=True)
+            if smooth:  # the single-device smoothing on the same device
+                dm = marching.mask_to_surface_device(torch.from_numpy(shell).to(dev),
+                                                     spacing=spacing)
+                want = mesh.ca_smoothing_device(dm, **smooth).t().cpu().numpy()
+                err = float(np.abs(v - want).max())
+                if err >= SMOOTH_TOL:
+                    raise AssertionError(f"{key}: {err} mm from ca_smoothing_device on {dev}")
+            path = tmp / f"{key.replace(' ', '_')}.stl"
+            mesh_io.write_stl_sharded(path, vsh, fsh)
+            ref = tmp / "ref.stl"
+            mesh_io.write_stl(ref, v, f)
+            if path.read_bytes() != ref.read_bytes():
+                raise AssertionError(f"{key}: write_stl_sharded's bytes are not write_stl's")
+            out[key] = (v, f, st["cuts"], st["tri_hist"], path.read_bytes())
+    return out
+
+
+def _compare_parallel(got: dict, want: dict) -> None:
+    """Card against CPU: everything equal but smoothed vertices, within
+    ``SMOOTH_TOL``."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"cases differ: {sorted(got)} vs {sorted(want)}")
+    for k in got:
+        g, w = got[k], want[k]
+        if k.startswith("surface"):
+            smoothed = k.endswith("smoothed")
+            err = float(np.abs(g[0] - w[0]).max()) if g[0].shape == w[0].shape else np.inf
+            if not ((err < SMOOTH_TOL if smoothed else err == 0.0)
+                    and np.array_equal(g[1], w[1]) and g[2:4] == w[2:4]
+                    and (smoothed or g[4] == w[4])):
+                raise AssertionError(
+                    f"{k}: the card and the CPU differ (vertices {err} mm, faces "
+                    f"{np.array_equal(g[1], w[1])}, cuts {g[2]} vs {w[2]}, histogram "
+                    f"{g[3] == w[3]}, STL {g[4] == w[4]})")
+        elif k.startswith("watershed"):
+            if not (np.array_equal(g[0], w[0]) and g[1] == w[1]):
+                raise AssertionError(f"{k}: labels or rounds {g[1]} vs {w[1]} differ")
+        elif not np.array_equal(g, w):
+            raise AssertionError(f"{k}: the card and the CPU differ")
+
+
+def cost_maps(f: torch.Tensor, markers: torch.Tensor, labels) -> torch.Tensor:
+    """(labels, Z, Y, X) minimax path cost from each label's seeds over
+    ``f``: the sweeps iterated to the rank fixpoint, one label at a time
+    (a voxel's label is optimal when its label's cost is the least)."""
+    out = []
+    for a in labels:
+        rank = torch.where(markers == a, 0, torch.full_like(f, kernels.INF_RANK))
+        lab = torch.zeros(f.shape, dtype=torch.int16, device=f.device)
+        while True:
+            prev = rank.clone()
+            for axis in range(3):
+                kernels.watershed_sweep(rank, lab, f, axis)
+            if torch.equal(prev, rank):
+                break
+        out.append(rank >> kernels.DIST_BITS)
+    return torch.stack(out)
+
+
+def label_agreement(got: torch.Tensor, want: torch.Tensor, ct: torch.Tensor,
+                    markers: torch.Tensor) -> dict:
+    """How the sharded labels ``got`` differ from the single-device
+    ``want``: the share of voxels, and whether each differing voxel is a
+    cost tie (its two labels reach it at the same minimax cost over the
+    flow's gradient, so either is a watershed of the image and the choice
+    is the solver's schedule)."""
+    img = (ct - torch.min(ct)).to(torch.int32)
+    f = torch.clamp(morphology.morphological_gradient(img, (3, 3, 3)), 0, 2**16 - 2)
+    ids = sorted(int(v) for v in torch.unique(markers) if int(v) > 0)
+    costs = cost_maps(f.contiguous(), markers, ids)
+    index = {a: i for i, a in enumerate(ids)}
+    lut = torch.full((max(ids) + 1,), -1, dtype=torch.int64, device=got.device)
+    for a, i in index.items():
+        lut[a] = i
+    diff = got != want
+    cg = costs.gather(0, lut[got.long()][None])[0][diff]
+    cw = costs.gather(0, lut[want.long()][None])[0][diff]
+    best = costs.min(dim=0).values[diff]
+    return {"differ": int(diff.sum()), "share": float(diff.float().mean()),
+            "untied": int(((cg != cw) | (cg != best)).sum())}
+
+
+def _faces_sorted(faces3t: torch.Tensor) -> torch.Tensor:
+    """(F, 3) faces, each rotated to its smallest id, rows sorted: the face
+    set as one tensor (winding kept)."""
+    f = faces3t.t().long()
+    r = torch.argmin(f, dim=1)
+    ar = torch.arange(len(f), device=f.device)
+    f = torch.stack([f[ar, (r + k) % 3] for k in range(3)], dim=1)
+    for col in (2, 1, 0):
+        f = f[torch.sort(f[:, col], stable=True).indices]
+    return f
+
+
+def check_sharded_flow(dev, res, ct, markers, single_labels, tmp: Path, out: Path,
+                       share_limit: float) -> dict:
+    """Holds a sharded flow's result against the single-device path: labels
+    (every differing voxel a cost tie, fewer than ``share_limit`` of them),
+    the surface of the same mask, the smoothed vertices, the face set, the
+    STL bytes, the sweep launches per shard and axis."""
+    agree = label_agreement(res.labels.gather(dev), single_labels,
+                            torch.from_numpy(ct).to(dev), torch.from_numpy(markers).to(dev))
+    if agree["untied"] or agree["share"] >= share_limit:
+        raise AssertionError(f"sharded labels against the single device's: {agree}")
+    mask = torch.where(res.labels.gather(dev) == 1, 255, 0).to(torch.uint8)
+    dm = marching.mask_to_surface_device(mask, spacing=pipeline.SPACING)
+    want3v = mesh.ca_smoothing_device(dm, **pipeline.CA_PARAMS)
+    vsh, fsh, checks, meta = res.parts
+    got3v = torch.cat([v.to(dev) for v in vsh], dim=1)
+    got_f = torch.cat([f.to(dev) for f in fsh], dim=1)
+    if (got3v.shape[1], got_f.shape[1]) != (dm.n_verts, dm.n_tris):
+        raise AssertionError(f"sharded mesh {got3v.shape[1]} verts {got_f.shape[1]} tris, "
+                             f"single device {dm.n_verts}, {dm.n_tris}")
+    used = torch.zeros(dm.n_verts, dtype=torch.bool, device=dev)
+    used[got_f.reshape(-1).long()] = True
+    err = float((got3v - want3v).abs().amax(dim=0)[used].max())
+    if err >= SMOOTH_TOL:
+        raise AssertionError(f"smoothed vertices {err} mm from the single device's")
+    if not torch.equal(_faces_sorted(got_f), _faces_sorted(dm.faces3t)):
+        raise AssertionError("the sharded face set is not the single device's")
+    check_closed(got3v, got_f)
+    ref = tmp / "assembled.stl"
+    mesh_io.write_stl(ref, got3v.t().cpu().numpy(), got_f.t().cpu().numpy())
+    if out.read_bytes() != ref.read_bytes():
+        raise AssertionError("write_stl_sharded's bytes are not write_stl's of the mesh")
+    launches = res.watershed_stats["launches"]
+    if dev.type == "cuda" and min(min(a) for a in launches) <= 0:
+        raise AssertionError(f"a shard's sweep never launched: {launches}")
+    cuts = res.cuts
+    lens = np.diff(cuts)
+    if cuts[0] != 0 or cuts[-1] != ct.shape[0] or (lens < 1).any():
+        raise AssertionError(f"cuts {cuts}")
+    return {"labels": agree, "n_verts": dm.n_verts, "n_tris": dm.n_tris, "max_err_mm": err,
+            "cuts": cuts, "checks": checks.tolist()}
+
+
+def sharded_phase(dev, tmp: Path, n: int = SHARDED_N, small: int = 64, ws_n: int = 128,
+                  times_4=None, n_shards: int = N_SHARDS, share_limit: float = 0.01) -> dict:
+    """Phase 17: the port's parallel/ package on the card.  ``share_limit``
+    bounds the share of voxels whose sharded label differs from the
+    single device's (the JAX test's 1%; make_ct's plateaus tie more voxels
+    below 192^3, where the flow runs without multigrid).  With several
+    cards the ``n_shards`` shards cycle over them, and the flow runs once
+    more with one shard a card."""
+    t_phase = time.perf_counter()
+    card = "cpu"
+    if dev.type == "cuda":
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+        card = "; ".join(card.splitlines())
+    log(f"[17] the sharded flow over a shard list at {n}^3 ({card})")
+    mesh_dev = make_mesh(n_shards, device=dev)
+    log(f"  mesh: {mesh_dev}")
+
+    # the small cases on the card and on the CPU
+    t0 = time.perf_counter()
+    (tmp / "dev").mkdir(exist_ok=True)
+    (tmp / "cpu").mkdir(exist_ok=True)
+    got = parallel_sequence(mesh_dev, tmp / "dev", small)
+    want = parallel_sequence(make_mesh(n_shards, device="cpu"), tmp / "cpu", small)
+    _compare_parallel(got, want)
+    log(f"  small cases on the card and the CPU equal ({len(got)} cases, "
+        f"{time.perf_counter() - t0:.1f} s): " + "; ".join(
+            f"{k} rounds {v[1]}" for k, v in got.items() if k.startswith("watershed")))
+
+    # the sharded watershed at ws_n^3, kernel against plain (3 levels: at
+    # 128^3 the coarsest slabs are 4 planes with their ghosts)
+    ct, markers = pipeline.make_ct(ws_n), pipeline.bench_markers(ws_n)
+    run = sharded_ops.sharded_watershed(mesh_dev, levels=3, stop="label", quiet_rounds=2)
+    st_k, st_p = {}, {}
+    t0 = time.perf_counter()
+    lab_k = run(ct, markers, stats=st_k)
+    _sync(dev)
+    t_k = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lab_p = run(ct, markers, sweep=kernels.watershed_sweep_ref, stats=st_p)
+    _sync(dev)
+    t_p = time.perf_counter() - t0
+    if not all(torch.equal(a, b) for a, b in zip(lab_k.shards, lab_p.shards)):
+        raise AssertionError(f"{ws_n}^3 sharded labels differ between kernel and plain")
+    if st_k["rounds"] != st_p["rounds"]:
+        raise AssertionError(f"{ws_n}^3 sharded rounds: kernel {st_k['rounds']}, plain "
+                             f"{st_p['rounds']}")
+    log(f"  {ws_n}^3 sharded watershed, 3 levels: labels bitwise equal, rounds "
+        f"{st_k['rounds']} equal; kernel {t_k:.3f} s, plain {t_p:.3f} s")
+
+    # the flow at n^3 through the entry point
+    ct, markers = pipeline.make_ct(n), pipeline.bench_markers(n)
+    out = tmp / f"sharded{n}.stl"
+    t0 = time.perf_counter()
+    pipeline.run(ct, markers, out, device=dev, shards=mesh_dev)
+    log(f"  warm-up run: {time.perf_counter() - t0:.3f} s")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    rounds = []
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = pipeline.run(ct, markers, out, device=dev, shards=mesh_dev, rounds=rounds)
+    total = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else 0.0
+    stats = res.watershed_stats
+    log(f"  timed run: {total:.3f} s; stages (s): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in res.times.items()))
+    if times_4:
+        log("  phase [4]'s single-device stages in this run (s): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in times_4.items()))
+    log(f"  peak device memory: {peak:.2f} GiB")
+    log(f"  rounds per level (coarse to fine, {stats['levels']} levels): {rounds}")
+    log("  halo bytes per level: " + ", ".join(str(b) for b in stats["halo_bytes"]))
+    log(f"  sweep launches: {launches}; per shard (axis 0/1/2): "
+        + ", ".join("/".join(str(x) for x in a) for a in stats["launches"]))
+    log(f"  cuts: {res.cuts}")
+    if n >= 192 and (stats["levels"] != 3 or len(rounds) != 4):
+        raise AssertionError(f"levels {stats['levels']}, rounds {rounds}: want 3 levels")
+    if dev.type == "cuda" and min(launches.values()) <= 0:
+        raise AssertionError(f"a sweep axis never launched: {launches}")
+    single = watershed.watershed(torch.from_numpy(ct).to(dev), torch.from_numpy(markers).to(dev))
+    with _Uncounted():
+        check = check_sharded_flow(dev, res, ct, markers, single, tmp, out, share_limit)
+    log(f"  against the single device: labels {check['labels']}; {check['n_verts']} verts, "
+        f"{check['n_tris']} tris equal; smoothed vertices within {check['max_err_mm']:.3g} mm; "
+        "face set equal; STL bytes write_stl's; per shard (own verts, tris, cut-plane "
+        f"verts, duplicates, local verts): {check['checks']}")
+    result = {"times": dict(res.times), "total": total, "peak_gib": peak, "rounds": rounds,
+              "halo_bytes": stats["halo_bytes"], "launches": launches,
+              "launches_per_shard": stats["launches"], "cuts": res.cuts, "check": check}
+    del res, single
+
+    if dev.type == "cuda" and torch.cuda.device_count() > 1:
+        mesh_all = make_mesh(device=dev)
+        out_k = tmp / f"sharded{n}_cards.stl"
+        pipeline.run(ct, markers, out_k, device=dev, shards=mesh_all)
+        t0 = time.perf_counter()
+        res = pipeline.run(ct, markers, out_k, device=dev, shards=mesh_all)
+        total_k = time.perf_counter() - t0
+        single = watershed.watershed(torch.from_numpy(ct).to(dev),
+                                     torch.from_numpy(markers).to(dev))
+        with _Uncounted():
+            check_k = check_sharded_flow(dev, res, ct, markers, single, tmp, out_k,
+                                         share_limit)
+        log(f"  one shard a card ({mesh_all.size} cards): {total_k:.3f} s; stages (s): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in res.times.items())
+            + f"; labels {check_k['labels']}; cuts {res.cuts}")
+        result["cards"] = {"times": dict(res.times), "total": total_k, "check": check_k}
+        del res
+    seconds = time.perf_counter() - t_phase
+    log(f"  phase [17]: {seconds:.1f} s ({card})")
+    result["seconds"] = seconds
+    return result
+
 
 if __name__ == "__main__":
     sys.exit(main())

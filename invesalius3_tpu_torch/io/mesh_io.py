@@ -8,20 +8,28 @@ writes the JAX package's bytes for the same arrays: the binary STL records
 are packed by the port's native packer (``csrc/meshpack.cpp``, the JAX
 package's arithmetic), the text formats by the same format strings.
 
-``write_stl_from_device`` copies a device mesh to the host in one
-synchronous copy, its vertices rounded through float16 on the device first
-(``marching.mesh_to_host``), as the JAX package's packed transfer does.
+``write_stl_from_device`` streams a device mesh to the file: its face
+table comes to the host in int32 chunks on a background thread
+(``DeviceFaceStream``, which a caller may start right after marching so the
+copy overlaps smoothing), its vertices, rounded through float16 on the
+device as the JAX package's packed transfer does, on another, while the
+calling thread packs and writes records.  ``write_stl_sharded`` does the
+same for the shards of ``parallel.sharded_ops.sharded_mask_to_surface``.
+Both write the bytes ``write_stl`` writes for the assembled mesh.
 """
 
 from __future__ import annotations
 
 import os
+import queue
 import struct
+import threading
 import zipfile
 from pathlib import Path
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
+import torch
 
 from invesalius3_tpu_torch import _build
 from invesalius3_tpu_torch.ops import marching
@@ -77,12 +85,178 @@ def write_stl(path, verts: np.ndarray, faces: np.ndarray, binary: bool = True,
         f.write(f"endsolid {name}\n")
 
 
-def write_stl_from_device(path, dm, name: str = "invesalius3_tpu") -> None:
-    """Write a ``marching.DeviceMesh`` as a binary STL."""
-    records = stl_records(*marching.mesh_to_host(dm))
-    with open(path, "wb") as f:
-        f.write(_stl_header(name, dm.n_tris))
-        f.write(records)
+def chunk_max(faces3t: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Per face chunk the largest vertex id it references, (K,) on the
+    faces' device: the vertices a streamed STL chunk waits for."""
+    T = int(faces3t.shape[1])
+    K = -(-T // chunk)
+    pad = K * chunk - T
+    if pad:
+        faces3t = torch.cat([faces3t, faces3t.new_zeros((3, pad))], dim=1)
+    return faces3t.reshape(3, K, chunk).amax(dim=(0, 2))
+
+
+class DeviceFaceStream:
+    """Background device-to-host copy of a device mesh's face table in
+    (n, 3) int32 chunks.
+
+    Marching fixes the faces; smoothing only moves vertices.  Start the
+    stream right after marching: on a card it copies on a side stream,
+    after an event recorded on the current stream, into pinned buffers, so
+    the transfer runs while the card smooths.  ``write_stl_from_device``
+    takes it and consumes the chunks in order."""
+
+    def __init__(self, dm, chunk: int = 1 << 20):
+        faces = dm.faces3t
+        self.n_tris = int(faces.shape[1])
+        self.chunk = max(1, min(int(chunk), self.n_tris))
+        ready = None
+        if faces.device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(faces.device))
+        self._q: queue.Queue = queue.Queue()
+        self._th = threading.Thread(target=self._run, args=(faces, ready),
+                                    daemon=True, name="face-stream")
+        self._th.start()
+
+    def _chunks(self, faces: torch.Tensor):
+        """(n, 3) int32 chunks, transposed on the faces' device."""
+        for i in range(0, self.n_tris, self.chunk):
+            n = min(self.chunk, self.n_tris - i)
+            yield n, faces[:, i:i + n].t().to(torch.int32).contiguous()
+
+    def _run(self, faces: torch.Tensor, ready) -> None:
+        try:
+            if ready is None:
+                for n, part in self._chunks(faces):
+                    self._q.put((part.numpy(), n))
+            else:
+                with torch.cuda.device(faces.device):
+                    side = torch.cuda.Stream()
+                    side.wait_event(ready)
+                    with torch.cuda.stream(side):
+                        for n, part in self._chunks(faces):
+                            host = torch.empty((n, 3), dtype=torch.int32, pin_memory=True)
+                            host.copy_(part, non_blocking=True)
+                            side.synchronize()
+                            self._q.put((host.numpy(), n))
+            self._q.put(None)
+        except Exception as e:  # raised again on the consumer's thread
+            self._q.put(e)
+
+    def __iter__(self):
+        while True:
+            item = self._q.get()
+            if item is None:
+                self._th.join()
+                return
+            if isinstance(item, Exception):
+                self._th.join()
+                raise item
+            yield item
+
+
+class _Filled:
+    """Rows of a host vertex array that a producer thread has filled; the
+    writer waits until the rows a face chunk references are there."""
+
+    def __init__(self, verts: np.ndarray):
+        self.verts = verts
+        self.rows = 0
+        self.done = False
+        self.error = None
+        self.cond = threading.Condition()
+
+    def run(self, pieces) -> threading.Thread:
+        """Fill from ``pieces``, an iterable of (start row, (n, 3) array),
+        on a background thread."""
+
+        def fill():
+            try:
+                for a, rows in pieces:
+                    self.verts[a:a + len(rows)] = rows
+                    with self.cond:
+                        self.rows = a + len(rows)
+                        self.cond.notify_all()
+            except Exception as e:  # raised again on the writer's thread
+                self.error = e
+            finally:
+                with self.cond:
+                    self.done = True
+                    self.cond.notify_all()
+
+        th = threading.Thread(target=fill, daemon=True, name="verts-stream")
+        th.start()
+        return th
+
+    def wait(self, need: int) -> None:
+        """Until ``need`` rows are filled or the producer has stopped."""
+        with self.cond:
+            while self.rows < need and not self.done:
+                self.cond.wait(timeout=1.0)
+        if self.error is not None:
+            raise self.error
+
+
+def write_stl_from_device(path, dm, name: str = "invesalius3_tpu",
+                          face_stream: "DeviceFaceStream | None" = None) -> None:
+    """Write a ``marching.DeviceMesh`` as a binary STL: the face chunks of
+    ``face_stream`` (started here if None) and the float16-rounded vertices
+    come to the host on background threads; each chunk is packed and
+    written once the vertices it references are there."""
+    if face_stream is None:
+        face_stream = DeviceFaceStream(dm)
+    V = dm.n_verts
+    # rounded through float16 and laid out (V, 3) on the device
+    rows = dm.verts3v.to(torch.float16).to(torch.float32).t().contiguous()
+    step = max(1, -(-V // 8))
+    filled = _Filled(np.empty((V, 3), np.float32))
+    bound = (chunk_max(dm.faces3t, face_stream.chunk).cpu().numpy()
+             if face_stream.n_tris else np.zeros(0, np.int64))
+
+    def pieces():
+        for a in range(0, V, step):
+            yield a, rows[a:a + step].cpu().numpy()
+
+    th = filled.run(pieces())
+    try:
+        with open(path, "wb") as f:
+            f.write(_stl_header(name, face_stream.n_tris))
+            for k, (faces, _) in enumerate(face_stream):
+                filled.wait(int(bound[k]) + 1)
+                f.write(stl_records(filled.verts, faces))
+    finally:
+        th.join()
+    filled.wait(V)
+
+
+def write_stl_sharded(path, verts_sh: List[torch.Tensor], faces_sh: List[torch.Tensor],
+                      name: str = "invesalius3_tpu") -> None:
+    """Write the parts of ``sharded_mask_to_surface(return_parts=True)``
+    (each shard's (3, n_own) world vertices and (3, n_tri) global faces) as
+    a binary STL: a producer thread copies the shards' vertices to the host
+    in shard order (global key order) while this thread packs and writes
+    each shard's records once the vertices they reference are there (a
+    cut's triangles reach into the next shard's).  The bytes of ``write_stl``
+    of the assembled mesh."""
+    from invesalius3_tpu_torch.parallel.sharded_ops import (shard_wound_faces,
+                                                            shard_world_verts)
+
+    sizes = [int(v.shape[1]) for v in verts_sh]
+    starts = np.concatenate([[0], np.cumsum(sizes)]).astype(int).tolist()
+    filled = _Filled(np.empty((starts[-1], 3), np.float32))
+    th = filled.run((starts[s], shard_world_verts(v)) for s, v in enumerate(verts_sh))
+    try:
+        with open(path, "wb") as f:
+            f.write(_stl_header(name, sum(int(x.shape[1]) for x in faces_sh)))
+            for faces_dev in faces_sh:
+                faces = shard_wound_faces(faces_dev)
+                if len(faces):
+                    filled.wait(int(faces.max()) + 1)
+                    f.write(stl_records(filled.verts, faces))
+    finally:
+        th.join()
+    filled.wait(starts[-1])
 
 
 def read_stl(path) -> Tuple[np.ndarray, np.ndarray]:

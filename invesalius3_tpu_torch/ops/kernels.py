@@ -114,10 +114,13 @@ def watershed_sweep(rank: torch.Tensor, lab: torch.Tensor, f: torch.Tensor,
 # the shapes on which the CUDA kernel is held against the plain version on
 # the card (tests/test_torch_cuda.py, chip_smoke.py): x = 130 takes int16
 # labels as 4-byte pairs, x = 131 stages them; (3, 5, 2500) and (2100, 3, 5)
-# have rays many chunks longer than the X sweep's two-chunk ring; the last
-# three have rays of length 1 and 2
+# have rays many chunks longer than the X sweep's two-chunk ring; (1, 1, 9),
+# (2, 2, 2) and (1, 2, 1) have rays of length 1 and 2; the last two are
+# the sharded watershed's ghost-padded slabs at 512^2 (one real plane and
+# two ghosts, and 512^3 over 8 shards)
 SWEEP_CHECK_SHAPES = [(64, 64, 64), (11, 21, 130), (11, 21, 131), (3, 5, 2500),
-                      (2100, 3, 5), (1, 1, 9), (2, 2, 2), (1, 2, 1)]
+                      (2100, 3, 5), (1, 1, 9), (2, 2, 2), (1, 2, 1), (3, 512, 512),
+                      (66, 512, 512)]
 
 
 def sweep_case(shape, lab_dtype, seed: int):

@@ -129,18 +129,66 @@ def _materialize_tables(vol_shape):
     return geom, keyoff, cent
 
 
+def cell_corners(inside: torch.Tensor):
+    """The eight (Z-1, Y-1, X-1) views of a boolean grid, one per cube
+    corner in ``CUBE_OFFSETS`` order: corner i of cell (z, y, x)."""
+    Z, Y, X = inside.shape
+    return [inside[dz:dz + Z - 1, dy:dy + Y - 1, dx:dx + X - 1]
+            for dz, dy, dx in CUBE_OFFSETS.tolist()]
+
+
+def active_of(corners) -> torch.Tensor:
+    """Cells whose corners are neither all inside nor all outside."""
+    agg_any = agg_all = corners[0]
+    for c in corners[1:]:
+        agg_any = agg_any | c
+        agg_all = agg_all & c
+    return agg_any & ~agg_all
+
+
+def triangles_of(corners) -> torch.Tensor:
+    """uint8 triangles per cell: a tet with s inside corners emits
+    min(s, 4 - s), so no case table is read."""
+    total = None
+    for tet in TETS.tolist():
+        s = corners[tet[0]].to(torch.uint8)
+        for j in tet[1:]:
+            s = s + corners[j].to(torch.uint8)
+        n = torch.minimum(s, 4 - s)
+        total = n if total is None else total + n
+    return total
+
+
+def _inside(field: torch.Tensor, iso: float, iso_greater: bool) -> torch.Tensor:
+    return field > iso if iso_greater else field < iso
+
+
+def count_active_cells(field: torch.Tensor, iso: float,
+                       iso_greater: bool = True) -> torch.Tensor:
+    """Number of cells whose corners straddle the iso surface (a 0-d int64
+    tensor on the field's device)."""
+    return active_of(cell_corners(_inside(field, iso, iso_greater))).sum()
+
+
+def count_cells_and_triangles(field: torch.Tensor, iso: float,
+                              iso_greater: bool = True):
+    """(active cells, triangles the extraction emits), 0-d int64 tensors."""
+    corners = cell_corners(_inside(field, iso, iso_greater))
+    return (active_of(corners).sum(),
+            triangles_of(corners).sum(dtype=torch.int64))
+
+
+def count_triangles(field: torch.Tensor, iso: float,
+                    iso_greater: bool = True) -> torch.Tensor:
+    return count_cells_and_triangles(field, iso, iso_greater)[1]
+
+
 def _active_cells(field: torch.Tensor, iso: float):
     """(8, A) lattice ids of the corners of the cells whose corners
     straddle ``iso``, cells in ascending id order."""
     Z, Y, X = field.shape
     Zc, Yc, Xc = Z - 1, Y - 1, X - 1
-    inside = field > iso
-    agg_any = agg_all = None
-    for dz, dy, dx in CUBE_OFFSETS:
-        c = inside[dz:dz + Zc, dy:dy + Yc, dx:dx + Xc]
-        agg_any = c if agg_any is None else agg_any | c
-        agg_all = c if agg_all is None else agg_all & c
-    active = (agg_any & ~agg_all).reshape(-1)
+    active = active_of(cell_corners(field > iso)).reshape(-1)
     cell_ids = torch.nonzero(active).squeeze(1)  # ascending
     cz = cell_ids // (Yc * Xc)
     rem = cell_ids % (Yc * Xc)

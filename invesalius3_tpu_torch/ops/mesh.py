@@ -275,26 +275,37 @@ def staircase_flags(normals3f: torch.Tensor, faces3t: torch.Tensor,
                     ) -> torch.Tensor:
     """(V,) bool: vertex has a face and its off-axis measure spans >= t on
     some axis (the rows of ``axes``, by default z, y, x of the stack)."""
+    vmax, vmin = staircase_range(normals3f, faces3t, n_verts, axes)
+    return flags_of_range(vmax, vmin, t)
+
+
+def staircase_range(normals3f: torch.Tensor, faces3t: torch.Tensor,
+                    n_verts: int,
+                    axes=((0.0, 0.0, 1.0), (0.0, 1.0, 0.0), (1.0, 0.0, 0.0))):
+    """(vmax, vmin), each (axes, V): the largest and smallest off-axis
+    measure over each vertex's faces (-inf and inf for a vertex without
+    one).  Ranges from two parts of a mesh combine by max and min."""
     dev = normals3f.device
     ax = torch.tensor(axes, dtype=torch.float32, device=dev)
     # axes @ normals written out, so no matmul precision mode (TF32) can
     # touch the flags; a unit axis picks one normal component exactly
     of = 1.0 - torch.abs(ax[:, 0, None] * normals3f[0] + ax[:, 1, None] * normals3f[1]
                          + ax[:, 2, None] * normals3f[2])  # (axes, F)
-    t32 = _f32(t, dev)
-    has_face = None
-    flag = torch.zeros((n_verts,), dtype=torch.bool, device=dev)
+    vmax = torch.full((len(axes), n_verts), -np.inf, dtype=torch.float32, device=dev)
+    vmin = torch.full((len(axes), n_verts), np.inf, dtype=torch.float32, device=dev)
     for a in range(len(axes)):
-        vmax = torch.full((n_verts,), -np.inf, dtype=torch.float32, device=dev)
-        vmin = torch.full((n_verts,), np.inf, dtype=torch.float32, device=dev)
         for c in range(3):
             idx = faces3t[c].long()
-            vmax.scatter_reduce_(0, idx, of[a], "amax")
-            vmin.scatter_reduce_(0, idx, of[a], "amin")
-        if has_face is None:
-            has_face = torch.isfinite(vmax)
-        flag |= (vmax - vmin) >= t32
-    return has_face & flag
+            vmax[a].scatter_reduce_(0, idx, of[a], "amax")
+            vmin[a].scatter_reduce_(0, idx, of[a], "amin")
+    return vmax, vmin
+
+
+def flags_of_range(vmax: torch.Tensor, vmin: torch.Tensor, t: float) -> torch.Tensor:
+    """(V,) bool: the vertex has a face and its range reaches ``t`` on some
+    axis."""
+    t32 = _f32(t, vmax.device)
+    return torch.isfinite(vmax[0]) & ((vmax - vmin) >= t32).any(dim=0)
 
 
 def _propagate_core_t(verts3v, neigh, deg, seeds, tmax: float, bmin: float,
@@ -391,7 +402,20 @@ def _grid_weights(grid, vox3v, tmax, bmin) -> torch.Tensor:
     zi = torch.clamp(torch.round(vox3v[0]).long(), 0, Z - 1)
     yi = torch.clamp(torch.round(vox3v[1]).long(), 0, Y - 1)
     xi = torch.clamp(torch.round(vox3v[2]).long(), 0, X - 1)
-    d = grid.reshape(-1)[(zi * Y + yi) * X + xi]
+    return weights_of_dist(grid.reshape(-1)[(zi * Y + yi) * X + xi], tmax, bmin)
+
+
+def voxel_coord(world: torch.Tensor, origin: float, spacing: float) -> torch.Tensor:
+    """(world - origin) / spacing in float32, rounded as a true division on
+    every device.  On the card torch divides by a host float as a product
+    with its float32 reciprocal, one ulp off; marching-cubes vertices of a
+    binary mask sit at half voxels, where one ulp picks the other voxel."""
+    return (world - origin) / _f32(spacing, world.device)
+
+
+def weights_of_dist(d, tmax, bmin) -> torch.Tensor:
+    """Weight 1 at a staircase vertex falling linearly to ``bmin`` at
+    ``tmax`` mm, ``bmin`` beyond (0-d float32 ``tmax`` and ``bmin``)."""
     w = (1.0 - d / tmax) * (1.0 - bmin) + bmin
     return torch.where(d <= tmax, w, bmin)
 
@@ -412,8 +436,8 @@ def ca_smoothing_device(dm, t: float = 0.7, tmax: float = 3.0,
     if propagate == "grid":
         sx, sy, sz = dm.spacing
         ox, oy, oz = dm.origin_shift
-        vox3v = torch.stack([(verts3v[2] - oz) / sz, (verts3v[1] - oy) / sy,
-                             (verts3v[0] - ox) / sx])  # (3 zyx, V)
+        vox3v = torch.stack([voxel_coord(verts3v[2], oz, sz), voxel_coord(verts3v[1], oy, sy),
+                             voxel_coord(verts3v[0], ox, sx)])  # (3 zyx, V)
         steps = min(16, int(np.ceil(tmax / min(dm.spacing))))
         grid = _rasterize_seeds(vox3v, flagged, dm.vol_shape)
         grid = _chamfer(grid, (sz, sy, sx), steps)

@@ -45,10 +45,13 @@ def _neighbor_relax(rank, lab, f, offsets):
     return rank, lab
 
 
-def _one_round(rank, lab, f, lab0, frozen, connectivity: int, sweep: Sweep):
-    """Six directional sweeps (three bidirectional ones), the diagonal relax
-    for 18/26-connectivity, then the frozen voxels restored.  ``rank`` and
-    ``lab`` are updated in place; returns them."""
+def _one_round_padded(rank, lab, f, connectivity: int, sweep: Sweep):
+    """Six directional sweeps (three bidirectional ones) and the diagonal
+    relax for 18/26-connectivity, in place on ``rank`` and ``lab``; returns
+    them.  The sharded watershed runs this on ghost-padded Z-slabs
+    (``parallel/sharded_ops.py``): the ghost planes take part as sweep
+    carries and relax parents, and the caller drops what the round wrote
+    into them."""
     for axis in range(3):
         sweep(rank, lab, f, axis)
     if connectivity != 6:
@@ -57,6 +60,13 @@ def _one_round(rank, lab, f, lab0, frozen, connectivity: int, sweep: Sweep):
         r, l = _neighbor_relax(rank, lab, f, _OFFSETS_26)
         rank.copy_(r)
         lab.copy_(l)
+    return rank, lab
+
+
+def _one_round(rank, lab, f, lab0, frozen, connectivity: int, sweep: Sweep):
+    """``_one_round_padded``, then the frozen voxels restored.  ``rank`` and
+    ``lab`` are updated in place; returns them."""
+    _one_round_padded(rank, lab, f, connectivity, sweep)
     rank.masked_fill_(frozen, 0)
     lab.copy_(torch.where(frozen, lab0, lab))
     return rank, lab

@@ -496,3 +496,72 @@ def test_mask_cut_card_equals_cpu(cuda, edit_mode):
         got = rasterize.mask_cut(mask.to(cuda), (0.5, 0.5, 0.5), depth, got_pm, mproj, mv,
                                  edit_mode)
         assert float((got.cpu() != want).float().mean()) <= 1e-4
+
+
+@pytest.mark.parametrize("stop", ["rank", "label"])
+def test_sharded_watershed_kernel_equals_plain(cuda, stop):
+    """The sharded watershed on 8 shards of the card through the kernel
+    and through the plain sweep: labels and rounds per level identical, the
+    kernel launched on every shard and axis, and the CPU shard list's
+    labels the same."""
+    from invesalius3_tpu_torch.parallel import sharded_ops
+    from invesalius3_tpu_torch.parallel.mesh_utils import make_mesh
+
+    ct, markers = pipeline.make_ct(128), pipeline.bench_markers(128)
+    q = 1 if stop == "rank" else 2
+    run = sharded_ops.sharded_watershed(make_mesh(8, device=cuda), levels=3, stop=stop,
+                                        quiet_rounds=q)
+    st_k, st_p = {}, {}
+    got = run(ct, markers, stats=st_k).gather().cpu()
+    want = run(ct, markers, sweep=kernels.watershed_sweep_ref, stats=st_p).gather().cpu()
+    assert torch.equal(got, want) and st_k["rounds"] == st_p["rounds"]
+    assert min(min(a) for a in st_k["launches"]) > 0
+    assert st_p["launches"] == [[0, 0, 0]] * 8
+    cpu = sharded_ops.sharded_watershed(make_mesh(8, device="cpu"), levels=3, stop=stop,
+                                        quiet_rounds=q)(ct, markers).gather()
+    assert torch.equal(got, cpu)
+
+
+def test_sharded_surface_card_equals_cpu(cuda):
+    """The balanced sharded surface with fused smoothing at an anisotropic
+    spacing on 8 shards of the card and of the CPU: cuts and faces equal,
+    vertices within 1e-4 mm; and the card's within 1e-4 mm of its
+    single-device smoothing."""
+    from invesalius3_tpu_torch.ops import mesh
+    from invesalius3_tpu_torch.parallel import sharded_ops
+    from invesalius3_tpu_torch.parallel.mesh_utils import make_mesh
+
+    zz, yy, xx = np.mgrid[:64, :64, :64]
+    r = np.sqrt((zz - 32) ** 2 + (yy - 32) ** 2 + (xx - 32) ** 2)
+    m = ((r < 22) & (r > 14)).astype(np.uint8) * 255
+    m[40:] = 0
+    smooth = {"t": 0.7, "tmax": 3.0, "bmin": 0.5, "n_iters": 10}
+    spacing = (0.5, 0.7, 1.1)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        out[dev.type] = sharded_ops.sharded_mask_to_surface(
+            make_mesh(8, device=dev), m, spacing=spacing, smooth=smooth,
+            balance=True, return_stats=True)
+    (v, f, st), (cv, cf, cst) = out["cuda"], out["cpu"]
+    assert st["cuts"] == cst["cuts"] and np.array_equal(f, cf)
+    assert np.abs(v - cv).max() < 1e-4
+    dm = marching.mask_to_surface_device(torch.from_numpy(m).to(cuda), spacing=spacing)
+    single = mesh.ca_smoothing_device(dm, **smooth).t().cpu().numpy()
+    assert np.abs(v - single).max() < 1e-4
+
+
+def test_ca_smoothing_card_equals_cpu_at_anisotropic_spacing(cuda):
+    """The single-device grid smoothing at (0.5, 0.7, 1.1) mm on the card and
+    on the CPU: the half-voxel vertices fall into the same chamfer voxels,
+    so the vertices agree within 1e-4 mm."""
+    from invesalius3_tpu_torch.ops import mesh
+
+    zz, yy, xx = np.mgrid[:48, :48, :48]
+    r = np.sqrt((zz - 24) ** 2 + (yy - 24) ** 2 + (xx - 24) ** 2)
+    m = torch.from_numpy(((r < 17) & (r > 9)).astype(np.uint8) * 255)
+    smooth = {"t": 0.7, "tmax": 3.0, "bmin": 0.5, "n_iters": 4}
+    got = mesh.ca_smoothing_device(
+        marching.mask_to_surface_device(m.to(cuda), spacing=(0.5, 0.7, 1.1)), **smooth)
+    want = mesh.ca_smoothing_device(
+        marching.mask_to_surface_device(m, spacing=(0.5, 0.7, 1.1)), **smooth)
+    assert float((got.cpu() - want).abs().max()) < 1e-4

@@ -23,6 +23,7 @@ from invesalius3_tpu_torch.io import dicom
 from invesalius3_tpu_torch.models import fastsurfer, layers, segment, unet2d, unet3d
 from invesalius3_tpu_torch.ops import (connected, filters, floodfill, mesh, morphology,
                                        rasterize, raycast, render_mesh, reslice, resize)
+from invesalius3_tpu_torch.parallel import distributed, mesh_utils
 
 torch.set_num_threads(1)
 
@@ -73,6 +74,9 @@ ENTRY_POINTS = {
     "fastsurfer.conform": fastsurfer.conform,
     "fastsurfer.run_quick_qc": fastsurfer.run_quick_qc,
     "app.run_cranioplasty": app.run_cranioplasty,
+    # the shard list (parallel/)
+    "mesh_utils.make_mesh": mesh_utils.make_mesh,
+    "distributed.global_mesh": distributed.global_mesh,
 }
 
 
@@ -109,6 +113,10 @@ def _jax_mesh():
 CALLS = {
     "pipeline.run": lambda tmp, **kw: pipeline.run(
         pipeline.make_ct(24), pipeline.bench_markers(24), tmp / "out.stl", **kw).labels,
+    "mesh_utils.make_mesh": lambda tmp, **kw: mesh_utils.shard_volume(
+        _ct(), mesh_utils.make_mesh(2, **kw)).shards[1],
+    "distributed.global_mesh": lambda tmp, **kw: mesh_utils.shard_volume(
+        _ct(), distributed.global_mesh(**kw)).shards[0],
     "Volume.from_numpy": lambda tmp, **kw: Volume.from_numpy(_ct(), **kw).data,
     "Mask.__init__": lambda tmp, **kw: Mask(shape=(6, 7, 8), **kw).data,
     "Mask.load_plist": lambda tmp, **kw: Mask.load_plist(*_plist(), **kw).data,

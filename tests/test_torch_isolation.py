@@ -111,15 +111,25 @@ def test_the_scan_sees_imports_inside_functions(tmp_path):
     assert [n for _, n in _imported_top_names(bad) if n in FORBIDDEN] == ["invesalius3_tpu"]
 
 
+PARALLEL_MODULES = ["parallel/__init__.py", "parallel/mesh_utils.py",
+                    "parallel/distributed.py", "parallel/sharded_ops.py"]
+
+
+@pytest.mark.parametrize("rel", PARALLEL_MODULES)
+def test_the_scan_covers_the_parallel_slice(rel):
+    path = PORT / rel
+    assert path in SOURCES, rel
+    assert not [n for _, n in _imported_top_names(path) if n in FORBIDDEN]
+
+
 def test_only_parallel_is_left_to_port():
-    """Every JAX module has a counterpart of the same path in the port but
-    the multi-device ``parallel/`` package, the Pallas kernels (the CUDA
-    sources in ``csrc/``) and ``native/`` (``native.py`` and ``csrc/``)."""
+    """Nothing is left to port: every JAX module has a counterpart of the
+    same path in the port (``parallel/`` since the shard-list slice) but
+    the Pallas kernels (the CUDA sources in ``csrc/``) and ``native/``
+    (``native.py`` and ``csrc/``)."""
     jax_pkg = ROOT / "invesalius3_tpu"
     missing = sorted(str(p.relative_to(jax_pkg)) for p in jax_pkg.rglob("*.py")
                      if not (PORT / p.relative_to(jax_pkg)).is_file())
-    assert missing == ["native/__init__.py", "ops/pallas_kernels.py", "parallel/__init__.py",
-                       "parallel/distributed.py", "parallel/mesh_utils.py",
-                       "parallel/sharded_ops.py"]
+    assert missing == ["native/__init__.py", "ops/pallas_kernels.py"]
     assert (PORT / "native.py").is_file()
     assert {"watershed_sweep.cu", "ray_projections.cu"} <= {p.name for p in (PORT / "csrc").iterdir()}
