@@ -247,7 +247,20 @@ Phases, each fatal on failure (no phase catches an error):
    of ``write_stl`` of the assembled mesh, the sweep launches per shard
    and axis above 0; it prints the stage times beside phase [4]'s, the
    peak, the rounds and halo bytes per level and the cuts.  With more than
-   one card it runs the flow once more on one shard a card.
+   one card it runs the flow once more on one shard a card;
+18. runs the same 512^3 flow across processes (``cross_process_phase``):
+   two ranks on the one card over gloo (their card planes staged through
+   pinned host buffers), each joining the group from torch's launcher
+   variables and calling ``pipeline.run(ct, markers, out,
+   shards=distributed.global_mesh(shape=(8,)))`` with 4 of the 8 shards,
+   once to warm up and once timed (sweep counts reset just before it);
+   with two or more cards once more over NCCL, one rank a card.  The ranks
+   load the kernels phase [1] built.  Every rank's labels (by shard),
+   rounds, halo bytes, cuts and checks and rank 0's STL bytes must equal
+   phase [17]'s, and every rank's sweeps must launch on every axis; any
+   rank's non-zero exit or a collective's timeout fails the phase.  It
+   prints the backend, the per-rank stage times, the bytes that crossed
+   between the ranks and each rank's peak device memory.
 
 It prints the card's name and power limit first, a JSON line of the
 kernels before the last line, and as the last line
@@ -257,8 +270,11 @@ Without a CUDA device it exits with status 1 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import hashlib
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -288,7 +304,7 @@ from invesalius3_tpu_torch.ops import (connected, floodfill, kernels, mesh, morp
 from invesalius3_tpu_torch.ops import marching
 from invesalius3_tpu_torch.ops import projection_kernels as rays
 from invesalius3_tpu_torch.ops import threshold as thr_ops
-from invesalius3_tpu_torch.parallel import sharded_ops
+from invesalius3_tpu_torch.parallel import collectives, distributed, sharded_ops
 from invesalius3_tpu_torch.parallel.mesh_utils import make_mesh
 from invesalius3_tpu_torch.utils import paths
 
@@ -525,14 +541,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_") as d:
         sharded = sharded_phase(dev, Path(d), times_4=times_4)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_procs_") as d:
+        procs = cross_process_phase(dev, Path(d), sharded)
 
     # the sweeps' launches on the main paths: the single-device flow of
-    # phase [4] and the sharded flow of phase [17], each counted from 0
+    # phase [4], the sharded flow of phase [17] and its ranks' in phase
+    # [18] (summed over the ranks), each counted from 0
     entries = [
         {"name": f"watershed_sweep[axis={axis}]", "route": "cuda",
          "source": KERNEL_SOURCE, "replaces": REPLACES[axis],
-         "launches": launches[axis] + sharded["launches"][axis],
-         "launches_by_phase": {"4": launches[axis], "17": sharded["launches"][axis]},
+         "launches": launches[axis] + sharded["launches"][axis] + procs["launches"][axis],
+         "launches_by_phase": {"4": launches[axis], "17": sharded["launches"][axis],
+                               "18": procs["launches"][axis]},
          **times[axis]}
         for axis in (0, 1, 2)]
     entries += [
@@ -4532,7 +4553,9 @@ def sharded_phase(dev, tmp: Path, n: int = SHARDED_N, small: int = 64, ws_n: int
         f"verts, duplicates, local verts): {check['checks']}")
     result = {"times": dict(res.times), "total": total, "peak_gib": peak, "rounds": rounds,
               "halo_bytes": stats["halo_bytes"], "launches": launches,
-              "launches_per_shard": stats["launches"], "cuts": res.cuts, "check": check}
+              "launches_per_shard": stats["launches"], "cuts": res.cuts, "check": check,
+              "digests": {"labels": shard_digests(res.labels),
+                          "stl": hashlib.sha256(out.read_bytes()).hexdigest()}}
     del res, single
 
     if dev.type == "cuda" and torch.cuda.device_count() > 1:
@@ -4555,6 +4578,264 @@ def sharded_phase(dev, tmp: Path, n: int = SHARDED_N, small: int = 64, ws_n: int
     seconds = time.perf_counter() - t_phase
     log(f"  phase [17]: {seconds:.1f} s ({card})")
     result["seconds"] = seconds
+    return result
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: the shard list across processes
+# ---------------------------------------------------------------------------
+
+PROC_SPACING = (0.5, 0.7, 1.1)  # the JAX tests' anisotropic spacing
+PROC_TIMEOUT_S = 120.0  # a collective waiting longer ends its rank
+
+
+def shard_digests(x) -> dict:
+    """sha256 of each held shard's bytes, by shard index."""
+    return {s: hashlib.sha256(x.shards[s].contiguous().cpu().numpy().tobytes()).hexdigest()
+            for s in x.local}
+
+
+def process_cases(mesh, tmp: Path, n: int = 64) -> dict:
+    """The shard list's cases on ``mesh`` at n^3 (``make_ct``, seed 0), as
+    host results by case: the bone mask's 26-connected dilation, the
+    floodfill from a skull seed (the shell crosses every shard), the
+    active-cell count, the watershed at 2 levels with both stopping rules
+    (labels, rounds, halo and wire bytes, launches; ranks at "rank"), the
+    balanced surface of its label-1 mask raw and smoothed at
+    ``PROC_SPACING`` (vertices, faces, cuts, checks, histogram) and
+    ``pipeline.run``'s STL bytes (the writing rank's).  Across processes
+    every rank returns the same results but the STL's."""
+    ct, markers = pipeline.make_ct(n), pipeline.bench_markers(n)
+    dev = mesh.devices.ravel()[mesh.ranks.ravel() == mesh.rank][0]
+    bone = ct >= 226
+    host = lambda t: t.gather().cpu().numpy()  # noqa: E731
+    out = {"dilation": host(sharded_ops.sharded_binary_dilation(
+        mesh, morphology.structure_3d(26))(bone))}
+    seeds = np.zeros(ct.shape, bool)
+    seeds[n // 2, n // 2, n // 2 + int(0.39 * n)] = True
+    out["floodfill"] = host(sharded_ops.sharded_floodfill_threshold(
+        mesh, morphology.structure_3d(6))(ct, seeds, 226, 3071))
+    out["active cells"] = sharded_ops.sharded_active_cell_count(mesh)(bone)
+    for stop, quiet in (("label", 2), ("rank", 1)):
+        stats = {}
+        run = sharded_ops.sharded_watershed(mesh, levels=2, stop=stop, quiet_rounds=quiet)
+        got = run(ct, markers, debug_rank=stop == "rank", stats=stats)
+        lab, rank = got if stop == "rank" else (got, None)
+        out[f"watershed {stop}"] = {
+            "labels": host(lab), "rank": None if rank is None else host(rank),
+            "rounds": stats["rounds"], "halo_bytes": stats["halo_bytes"],
+            "launches": stats["launches"], "wire_bytes": stats["wire_bytes"]}
+    mask = np.where(out["watershed label"]["labels"] == 1, 255, 0).astype(np.uint8)
+    for smooth in (None, pipeline.CA_PARAMS):
+        v, f, st = sharded_ops.sharded_mask_to_surface(
+            mesh, mask, spacing=PROC_SPACING, smooth=smooth, balance=True, return_stats=True)
+        out["surface " + ("smoothed" if smooth else "raw")] = {
+            "verts": v, "faces": f, "cuts": st["cuts"], "checks": st["checks"],
+            "tri_hist": st["tri_hist"]}
+    path = tmp / f"flow_rank{mesh.rank}.stl"
+    res = pipeline.run(ct, markers, path, device=dev, shards=mesh)
+    out["flow"] = {"stl": path.read_bytes() if res.stl else None, "cuts": res.cuts,
+                   "rounds": res.watershed_stats["rounds"],
+                   "halo_bytes": res.watershed_stats["halo_bytes"],
+                   "labels": host(res.labels)}
+    return out
+
+
+def _flow_rank(mesh, dev, tmp: Path, n: int) -> dict:
+    """Phase [18] in one rank: ``pipeline.run`` at n^3 on its shards once
+    to warm up and once timed (sweep counts reset just before it)."""
+    ct, markers = pipeline.make_ct(n), pipeline.bench_markers(n)
+    out = tmp / f"flow_rank{mesh.rank}.stl"
+    t0 = time.perf_counter()
+    pipeline.run(ct, markers, out, device=dev, shards=mesh)
+    warm = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    torch.distributed.barrier(group=mesh.host_group)
+    t0 = time.perf_counter()
+    res = pipeline.run(ct, markers, out, device=dev, shards=mesh)
+    total = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    st = res.watershed_stats
+    _, _, checks, meta = res.parts
+    times = dict(res.times)
+    times.update(meta["rank_times"][mesh.rank])  # this rank's, not the slowest's
+    return {
+        "rank": mesh.rank, "backend": collectives.backend(mesh),
+        "built_s": {k: v["seconds"] for k, v in _build.BUILD_LOG.items()},
+        "staged": collectives.staged(mesh, dev), "device": str(dev), "warm": warm,
+        "total": total, "times": times,
+        "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
+                     if dev.type == "cuda" else 0.0),
+        "rounds": st["rounds"], "halo_bytes": st["halo_bytes"],
+        "wire_bytes": st["wire_bytes"], "surface_wire_bytes": meta["wire_bytes"],
+        "launches": launches, "launches_per_shard": st["launches"], "cuts": res.cuts,
+        "checks": checks.tolist(), "labels": shard_digests(res.labels),
+        "stl": hashlib.sha256(out.read_bytes()).hexdigest() if res.stl else None}
+
+
+def rank_main(kind: str, out_dir: str, n: int, device: str, n_shards: int,
+              backend=None, fail_rank: int = -1) -> None:
+    """One rank of a group launched by ``spawn_ranks`` (torch's launcher
+    variables in the environment): joins the group, lays ``n_shards``
+    shards over the ranks (a group of one is the one-process shard list)
+    and runs ``kind``: "cases" (``process_cases``, pickled), "flow"
+    (``_flow_rank``, JSON) or "fail" (the watershed, whose sweep raises on
+    ``fail_rank`` in its second round)."""
+    import pickle
+
+    out = Path(out_dir)
+    if device == "cpu":  # several ranks share the host's cores
+        torch.set_num_threads(1)
+    distributed.initialize(device=device, backend=backend, timeout=PROC_TIMEOUT_S)
+    mesh = distributed.global_mesh(shape=(n_shards,), device=device)
+    dev = mesh.devices.ravel()[mesh.ranks.ravel() == mesh.rank][0]
+    if kind == "cases":
+        (out / f"rank{mesh.rank}.pkl").write_bytes(pickle.dumps(process_cases(mesh, out, n)))
+    elif kind == "flow":
+        (out / f"rank{mesh.rank}.json").write_text(json.dumps(_flow_rank(mesh, dev, out, n)))
+    elif kind == "fail":
+        calls = [0]
+
+        def sweep(*a):
+            calls[0] += 1
+            if mesh.rank == fail_rank and calls[0] > 6:
+                raise RuntimeError(f"rank {mesh.rank} fails on purpose")
+            return kernels.watershed_sweep(*a)
+
+        ct, markers = pipeline.make_ct(n), pipeline.bench_markers(n)
+        sharded_ops.sharded_watershed(mesh, levels=0, stop="rank")(ct, markers, sweep=sweep)
+    else:
+        raise ValueError(f"unknown rank job {kind!r}")
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+
+
+def spawn_ranks(kind: str, world: int, out_dir: Path, n: int, device: str, n_shards: int,
+                backend=None, timeout: float = 300.0, fail_rank: int = -1,
+                kill_on_failure: bool = True, env=None) -> list:
+    """Start ``world`` ranks of ``rank_main`` on this host (torch's launcher
+    variables, a free port on 127.0.0.1, and ``env`` on top) and wait for
+    them: on the first rank that exits non-zero the others are killed
+    (unless ``kill_on_failure`` is False), and every rank is killed at
+    ``timeout``.  Returns each rank's (exit code, stdout, stderr, seconds
+    to its exit or None); stops every process it started."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    port = _free_port()
+    root = str(Path(__file__).resolve().parent)
+    code = (f"import sys; sys.path.insert(0, {root!r}); import chip_smoke; "
+            f"chip_smoke.rank_main({kind!r}, {str(out_dir)!r}, {n}, {device!r}, {n_shards}, "
+            f"{backend!r}, {fail_rank})")
+    procs = []
+    ended = [None] * world
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as files:
+        logs = [(files.enter_context(open(out_dir / f"rank{r}.out", "w+")),
+                 files.enter_context(open(out_dir / f"rank{r}.err", "w+"))) for r in range(world)]
+        try:
+            for rank, (so, se) in enumerate(logs):
+                rank_env = dict(os.environ, WORLD_SIZE=str(world), RANK=str(rank),
+                                LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                                MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+                rank_env.update(env or {})
+                procs.append(subprocess.Popen([sys.executable, "-c", code], env=rank_env,
+                                              stdout=so, stderr=se, cwd=root))
+            while any(e is None for e in ended):
+                for r, p in enumerate(procs):
+                    if ended[r] is None and p.poll() is not None:
+                        ended[r] = time.perf_counter() - t0
+                failed = any(p.returncode not in (None, 0) for p in procs)
+                if (failed and kill_on_failure) or time.perf_counter() - t0 > timeout:
+                    break
+                time.sleep(0.05)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait(timeout=30)
+        out = []
+        for p, (so, se), seconds in zip(procs, logs, ended):
+            so.seek(0)
+            se.seek(0)
+            out.append((p.returncode, so.read(), se.read(), seconds))
+    return out
+
+
+def _check_ranks(runs: list, what: str) -> None:
+    for r, (rc, _, err, _) in enumerate(runs):
+        if rc != 0:
+            raise AssertionError(f"{what}: rank {r} exited {rc}:\n{err[-4000:]}")
+
+
+def cross_process_phase(dev, tmp: Path, ref: dict, n: int = SHARDED_N,
+                        n_shards: int = N_SHARDS, world: int = 2) -> dict:
+    """Phase 18: ``pipeline.run(..., shards=distributed.global_mesh())`` in
+    ``world`` ranks on one card over gloo (card planes staged through
+    pinned host buffers), ``n_shards`` shards over them; with two or more
+    cards once more over NCCL, one rank a card.  Every rank's labels,
+    rounds, halo bytes, cuts, checks and the STL must equal phase [17]'s
+    one-process run (``ref``), and every rank's sweeps must launch on
+    every axis.  Returns the sweep launches of the timed runs, summed over
+    the ranks."""
+    t_phase = time.perf_counter()
+    card = "cpu"
+    if dev.type == "cuda":
+        card = "; ".join(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines())
+    log(f"[18] the sharded flow across processes at {n}^3 ({card})")
+    # the gloo ranks all see only this process's first card
+    one_card = {"CUDA_VISIBLE_DEVICES": os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]}
+    groups = [("gloo", world, "gloo", one_card if dev.type == "cuda" else None)]
+    if dev.type == "cuda" and torch.cuda.device_count() > 1:
+        groups.append(("nccl", torch.cuda.device_count(), "nccl", None))
+    launches = {0: 0, 1: 0, 2: 0}
+    result = {}
+    for name, ranks, backend, env in groups:
+        t0 = time.perf_counter()
+        runs = spawn_ranks("flow", ranks, tmp / name, n, dev.type, n_shards, backend=backend,
+                           timeout=600.0, env=env)
+        _check_ranks(runs, f"[18] {name}")
+        got = [json.loads((tmp / name / f"rank{r}.json").read_text()) for r in range(ranks)]
+        log(f"  {name}: {ranks} ranks, {n_shards} shards, backend {got[0]['backend']}, "
+            f"staged through host buffers {got[0]['staged']} "
+            f"({time.perf_counter() - t0:.1f} s with start-up)")
+        digests = {}
+        for g in got:
+            digests.update({int(s): d for s, d in g["labels"].items()})
+            for key in ("rounds", "halo_bytes", "cuts"):
+                if g[key] != ref[key]:
+                    raise AssertionError(f"[18] {name} rank {g['rank']}: {key} {g[key]}, "
+                                         f"one process {ref[key]}")
+            if g["checks"] != ref["check"]["checks"]:
+                raise AssertionError(f"[18] {name} rank {g['rank']}: checks differ")
+            if any(t > 0 for t in g["built_s"].values()):
+                raise AssertionError(f"[18] {name} rank {g['rank']} compiled a kernel: "
+                                     f"{g['built_s']}")
+            if dev.type == "cuda" and min(g["launches"].values()) <= 0:
+                raise AssertionError(f"[18] {name} rank {g['rank']}: a sweep axis never "
+                                     f"launched: {g['launches']}")
+            for axis in (0, 1, 2):
+                launches[axis] += g["launches"][str(axis)]
+            log(f"  rank {g['rank']} on {g['device']}: timed {g['total']:.3f} s (warm-up "
+                f"{g['warm']:.3f} s); stages (s): "
+                + ", ".join(f"{k} {v:.4f}" for k, v in g["times"].items())
+                + f"; peak {g['peak_gib']:.2f} GiB (one process: {ref['peak_gib']:.2f} GiB); "
+                f"sweep launches {g['launches']}")
+        if digests != {int(s): d for s, d in ref["digests"]["labels"].items()}:
+            raise AssertionError(f"[18] {name}: labels differ from the one-process run's")
+        stl = [g["stl"] for g in got if g["stl"]]
+        if stl != [ref["digests"]["stl"]]:
+            raise AssertionError(f"[18] {name}: STL {stl}, one process "
+                                 f"{ref['digests']['stl']}")
+        log(f"  {name}: labels, rounds {got[0]['rounds']}, halo bytes, cuts {got[0]['cuts']}, "
+            f"checks and STL bytes equal phase [17]'s; wire bytes per level "
+            f"{got[0]['wire_bytes']} (watershed), {got[0]['surface_wire_bytes']} (surface)")
+        result[name] = got
+    seconds = time.perf_counter() - t_phase
+    log(f"  phase [18]: {seconds:.1f} s ({card})")
+    result.update(launches=launches, seconds=seconds)
     return result
 
 

@@ -26,7 +26,7 @@ import struct
 import threading
 import zipfile
 from pathlib import Path
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -230,18 +230,33 @@ def write_stl_from_device(path, dm, name: str = "invesalius3_tpu",
     filled.wait(V)
 
 
-def write_stl_sharded(path, verts_sh: List[torch.Tensor], faces_sh: List[torch.Tensor],
-                      name: str = "invesalius3_tpu") -> None:
+def write_stl_sharded(path, verts_sh: List[Optional[torch.Tensor]],
+                      faces_sh: List[Optional[torch.Tensor]], name: str = "invesalius3_tpu",
+                      shards=None) -> None:
     """Write the parts of ``sharded_mask_to_surface(return_parts=True)``
     (each shard's (3, n_own) world vertices and (3, n_tri) global faces) as
     a binary STL: a producer thread copies the shards' vertices to the host
     in shard order (global key order) while this thread packs and writes
     each shard's records once the vertices they reference are there (a
     cut's triangles reach into the next shard's).  The bytes of ``write_stl``
-    of the assembled mesh."""
+    of the assembled mesh.
+
+    With ``shards``, a mesh across processes (its shards held elsewhere are
+    None here), every rank sends its parts' host world vertices and wound
+    faces to rank 0, lengths first, and returns; rank 0 writes the same
+    bytes."""
     from invesalius3_tpu_torch.parallel.sharded_ops import (shard_wound_faces,
                                                             shard_world_verts)
 
+    if shards is not None and shards.multiprocess:
+        from invesalius3_tpu_torch.parallel.sharded_ops import gather_parts_to_rank0
+
+        got = gather_parts_to_rank0(shards, verts_sh, faces_sh)
+        if got is None:
+            return
+        verts_sh, faces_sh = got
+    elif any(v is None for v in verts_sh):
+        raise ValueError("parts held by other processes: pass their mesh as shards=")
     sizes = [int(v.shape[1]) for v in verts_sh]
     starts = np.concatenate([[0], np.cumsum(sizes)]).astype(int).tolist()
     filled = _Filled(np.empty((starts[-1], 3), np.float32))

@@ -11,17 +11,23 @@ devices.
 
     from invesalius3_tpu_torch.parallel import distributed
     distributed.initialize()                  # env-driven; False alone
-    mesh = distributed.global_mesh(("z",))    # every local card
+    mesh = distributed.global_mesh(("z",))    # every process's card
+    mesh = distributed.global_mesh(shape=(8,))  # 8 shards over the ranks
 
-The sharded ops run one program over a shard list in one process.  A
-shard list whose neighbours live in other processes (halo copies by
-``torch.distributed`` send and receive) is not built yet, so
-``global_mesh`` raises in a multi-process run rather than return the local
-devices as if they were all of them (ROADMAP, Queue 1).
+In a group of R processes each one places its shards on its own card,
+``cuda:{LOCAL_RANK % device_count}`` (or the CPU when the caller passes
+``device="cpu"``), and ``global_mesh`` lists every process's devices
+host-major as the JAX function does: with S shards, shard s lives on rank
+s // (S / R).  Every rank then calls the same sharded op or
+``pipeline.run(..., shards=mesh)`` with the same host arrays, as every JAX
+process does; what crosses between ranks goes through ``collectives``.
+
+    torchrun --nproc-per-node 4 script.py     # script: initialize(device="cpu"), ...
 """
 
 from __future__ import annotations
 
+import datetime
 import os
 from typing import Optional, Sequence, Tuple
 
@@ -30,7 +36,11 @@ import torch
 import torch.distributed as dist
 
 from invesalius3_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from invesalius3_tpu_torch.parallel import collectives
 from invesalius3_tpu_torch.parallel.mesh_utils import ShardMesh, local_devices
+
+TIMEOUT_S = 300.0  # a collective that waits longer ends its process
+_HOST_GROUP = {}  # the gloo group beside an NCCL one, made once
 
 
 def is_multiprocess_env() -> bool:
@@ -46,11 +56,16 @@ def is_multiprocess_env() -> bool:
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None,
-               device=DEFAULT_DEVICE) -> bool:
-    """Join the process group (idempotent): NCCL on the card, gloo when
-    the caller passes ``device="cpu"``.  ``coordinator_address`` is
-    "host:port".  Returns True if a multi-process group is joined, False
-    when running single-process."""
+               device=DEFAULT_DEVICE, backend: Optional[str] = None,
+               timeout: float = TIMEOUT_S) -> bool:
+    """Join the process group (idempotent).  ``coordinator_address`` is
+    "host:port".  On the card each rank takes ``cuda:{LOCAL_RANK %
+    device_count}``.  ``backend`` None is NCCL on the card when the host's
+    ranks (``LOCAL_WORLD_SIZE``) have a card each, gloo when they share
+    one (NCCL refuses two ranks on one card) and gloo on the CPU.  A
+    collective that waits ``timeout`` seconds raises, so a rank that dies
+    ends the others.  Returns True if a multi-process group is joined,
+    False when running single-process."""
     if dist.is_initialized():
         return True
     if coordinator_address is None and os.environ.get("MASTER_ADDR"):
@@ -65,9 +80,20 @@ def initialize(coordinator_address: Optional[str] = None,
     if coordinator_address is None or num_processes is None or process_id is None:
         raise ValueError("a multi-process group needs the coordinator address, "
                          "the number of processes and this process's id")
-    backend = "nccl" if resolve_device(device).type == "cuda" else "gloo"
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        n_cards = torch.cuda.device_count()
+        local_rank = int(os.environ.get("LOCAL_RANK", process_id))
+        torch.cuda.set_device(local_rank % n_cards)
+        if backend is None:
+            per_host = int(os.environ.get("LOCAL_WORLD_SIZE", num_processes))
+            backend = "nccl" if per_host <= n_cards else "gloo"
+    backend = backend or "gloo"
+    if backend == "nccl" and dev.type != "cuda":
+        raise ValueError("NCCL carries card tensors: pass a CUDA device")
     dist.init_process_group(backend, init_method=f"tcp://{coordinator_address}",
-                            world_size=int(num_processes), rank=int(process_id))
+                            world_size=int(num_processes), rank=int(process_id),
+                            timeout=datetime.timedelta(seconds=float(timeout)))
     return True
 
 
@@ -78,27 +104,64 @@ def process_info() -> Tuple[int, int]:
     return 0, 1
 
 
+def _host_group():
+    """A gloo group over every rank for host scalars and arrays: the
+    world group when it is gloo, else one made once (every rank calls
+    this in the same order, as ``global_mesh`` does)."""
+    if dist.get_backend() == "gloo":
+        return dist.group.WORLD
+    if "g" not in _HOST_GROUP:
+        _HOST_GROUP["g"] = dist.new_group(backend="gloo")
+    return _HOST_GROUP["g"]
+
+
 def global_mesh(axis_names: Tuple[str, ...] = ("z",),
                 shape: Optional[Sequence[int]] = None,
                 device=DEFAULT_DEVICE) -> ShardMesh:
     """Mesh over every process's devices, host-major so the trailing axis
-    stays within a host.  Single-process that is every local device."""
-    _, n_proc = process_info()
-    if n_proc > 1:
-        raise NotImplementedError(
-            "a shard list across processes (halo copies over torch.distributed "
-            "send/recv) is not built: ROADMAP Queue 1, item 1")
-    devices = local_devices(device)
-    n = len(devices)
+    stays within a host (the JAX function's rule for the axis sizes).
+    Single-process that is every local device; in a group of R processes
+    each process brings its own device (its card, or the CPU) and a
+    ``shape`` of S entries (S a multiple of R) puts S / R shards on each,
+    shard s on rank s // (S / R).  Every rank calls it (it is a
+    collective)."""
+    rank, n_proc = process_info()
+    if n_proc == 1:
+        devices = local_devices(device)
+    else:
+        dev = resolve_device(device)
+        devices = [torch.device("cuda", torch.cuda.current_device())
+                   if dev.type == "cuda" else torch.device("cpu")]
+    n = len(devices) * n_proc
     if shape is None:
         if len(axis_names) == 1:
             shape = (n,)
         else:
             per_host = max(1, n // n_proc)
             shape = (n // per_host,) + (1,) * (len(axis_names) - 2) + (per_host,)
-    arr = np.empty(n, dtype=object)
-    arr[:] = devices
-    return ShardMesh(arr.reshape(tuple(shape)), axis_names)
+    size = int(np.prod(shape))
+    if size % n_proc:
+        raise ValueError(f"a mesh of {size} entries does not split over {n_proc} processes")
+    per_rank = size // n_proc
+    mine = [devices[i % len(devices)] for i in range(per_rank)]
+    arr = np.empty(size, dtype=object)
+    ranks = np.repeat(np.arange(n_proc), per_rank)
+    if n_proc == 1:
+        arr[:] = mine
+        return ShardMesh(arr.reshape(tuple(shape)), axis_names)
+    host = _host_group()
+    if dist.get_backend() == "nccl":  # all ranks join the communicator at once
+        dist.barrier(device_ids=[torch.cuda.current_device()])
+    probe = ShardMesh(np.array([None] * n_proc, dtype=object), ("p",),
+                      ranks=np.arange(n_proc), rank=rank,
+                      group=dist.group.WORLD, host_group=host)
+    idx = np.asarray([-1 if d.type == "cpu" else d.index for d in mine], np.int64)
+    every = collectives.allgather_host(probe, idx)
+    for r, ids in enumerate(every):
+        arr[r * per_rank:(r + 1) * per_rank] = [
+            torch.device("cpu") if i < 0 else torch.device("cuda", int(i)) for i in ids]
+    return ShardMesh(arr.reshape(tuple(shape)), axis_names, ranks=ranks, rank=rank,
+                     group=dist.group.WORLD, host_group=host)
 
 
 def local_data_slice(global_batch: int) -> slice:

@@ -10,6 +10,12 @@ s on ``mesh.devices[s]``.  On the card a mesh takes ``cuda:0`` ...
 cards, so one card runs N shards through the same code; on the CPU
 (``device="cpu"``) it holds N ``cpu`` entries.
 
+A mesh from ``distributed.global_mesh()`` spans the processes of a
+``torch.distributed`` group: it also names each shard's rank, each
+process holds only its own shards (the others' entries of
+``Sharded.shards`` are None) and what crosses between processes goes
+through ``collectives``.
+
     mesh = make_mesh(8)                      # 8 shards over the cards
     vol = shard_volume(ct, mesh)             # Z slabs, Z padded to 8k
     whole = vol.gather()                     # back on shard 0's device
@@ -42,14 +48,35 @@ def local_devices(device=DEFAULT_DEVICE) -> List[torch.device]:
 class ShardMesh:
     """An array of devices with named axes (the counterpart of a
     ``jax.sharding.Mesh``).  Two meshes are equal only if they are the same
-    object, as two placements on them are."""
+    object, as two placements on them are.
 
-    def __init__(self, devices: np.ndarray, axis_names: Tuple[str, ...]):
+    ``ranks`` (same shape) names the process that holds each entry and
+    ``rank`` is this process; ``group`` is the ``torch.distributed`` group
+    over those processes (None in one process) and ``host_group`` a gloo
+    group over the same processes for host scalars and arrays (the group
+    itself when it is gloo)."""
+
+    def __init__(self, devices: np.ndarray, axis_names: Tuple[str, ...],
+                 ranks: Optional[np.ndarray] = None, rank: int = 0,
+                 group=None, host_group=None):
         devices = np.asarray(devices, dtype=object)
         if devices.ndim != len(axis_names):
             raise ValueError(f"{devices.ndim}-D device array for axes {axis_names}")
         self.devices = devices
         self.axis_names = tuple(axis_names)
+        self.ranks = (np.zeros(devices.shape, np.int64) if ranks is None
+                      else np.asarray(ranks, np.int64).reshape(devices.shape))
+        self.rank = int(rank)
+        if group is not None and (np.diff(self.ranks.ravel()) < 0).any():
+            raise ValueError("a mesh across processes lists its entries host-major "
+                             f"(ranks {self.ranks.ravel().tolist()})")
+        self.group = group
+        self.host_group = host_group if host_group is not None else group
+        self.pinned: dict = {}  # host staging buffers, reused across calls
+
+    @property
+    def multiprocess(self) -> bool:
+        return self.group is not None
 
     @property
     def shape(self) -> dict:
@@ -65,8 +92,18 @@ class ShardMesh:
         a = np.moveaxis(self.devices, self.axis_names.index(axis), 0)
         return list(a.reshape(a.shape[0], -1)[:, 0])
 
+    def axis_ranks(self, axis: str) -> List[int]:
+        """The ranks holding the entries along ``axis``, the other axes at
+        index 0."""
+        a = np.moveaxis(self.ranks, self.axis_names.index(axis), 0)
+        return [int(r) for r in a.reshape(a.shape[0], -1)[:, 0]]
+
     def __repr__(self) -> str:
-        return f"ShardMesh({self.shape}, {[str(d) for d in self.devices.ravel()]})"
+        devs = [str(d) for d in self.devices.ravel()]
+        if not self.multiprocess:
+            return f"ShardMesh({self.shape}, {devs})"
+        where = [f"{d}@rank{r}" for d, r in zip(devs, self.ranks.ravel())]
+        return f"ShardMesh({self.shape}, {where}, rank {self.rank})"
 
 
 def make_mesh(n_devices: Optional[int] = None,
@@ -94,33 +131,61 @@ def make_mesh(n_devices: Optional[int] = None,
 class Sharded:
     """An array in pieces: ``shards[s]`` lies on the placement's s-th
     device and starts at ``starts[s]`` along the first axis (every start
-    is 0 for a replicated array)."""
+    is 0 for a replicated array).  A shard that another process holds is
+    None; ``extent`` is then the whole first axis (None: the shards'
+    sum)."""
 
-    shards: List[torch.Tensor]
+    shards: List[Optional[torch.Tensor]]
     starts: List[int]
     sharding: "Placement"
+    extent: Optional[int] = None
+
+    @property
+    def local(self) -> List[int]:
+        """The indices of the shards this process holds."""
+        return [s for s, a in enumerate(self.shards) if a is not None]
 
     @property
     def shape(self) -> Tuple[int, ...]:
-        first = self.shards[0]
+        first = self.shards[self.local[0]]
         if not self.sharding.spec:
             return tuple(first.shape)
-        return (sum(int(s.shape[0]) for s in self.shards),) + tuple(first.shape[1:])
+        z = (self.extent if self.extent is not None
+             else sum(int(s.shape[0]) for s in self.shards))
+        return (z,) + tuple(first.shape[1:])
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.shards[0].dtype
+        return self.shards[self.local[0]].dtype
+
+    def lengths(self) -> List[int]:
+        """Every shard's length along the split axis, held or not."""
+        ends = list(self.starts[1:]) + [self.shape[0]]
+        return [e - a for a, e in zip(self.starts, ends)]
+
+    def like(self, shards: List[Optional[torch.Tensor]]) -> "Sharded":
+        """New pieces laid as these."""
+        return Sharded(list(shards), list(self.starts), self.sharding, self.extent)
 
     def gather(self, device=None) -> torch.Tensor:
-        """The whole array on ``device`` (shard 0's by default)."""
-        device = self.shards[0].device if device is None else torch.device(device)
+        """The whole array on ``device`` (the first held shard's by
+        default).  Across processes every process gets it, through an
+        all-gather over the group (JAX's ``process_allgather``)."""
+        first = self.shards[self.local[0]]
+        device = first.device if device is None else torch.device(device)
         if not self.sharding.spec:
-            return self.shards[0].to(device)
-        return torch.cat([s.to(device) for s in self.shards])
+            return first.to(device)
+        mesh = self.sharding.mesh
+        if not mesh.multiprocess:
+            return torch.cat([s.to(device) for s in self.shards])
+        from invesalius3_tpu_torch.parallel import collectives
+
+        mine = torch.cat([self.shards[s] for s in self.local])
+        return torch.cat([b.to(device) for b in collectives.allgather_rows(mesh, mine)])
 
     def map(self, fn) -> "Sharded":
         """``fn`` applied shard by shard (an elementwise op needs no halo)."""
-        return Sharded([fn(s) for s in self.shards], list(self.starts), self.sharding)
+        return self.like([None if s is None else fn(s) for s in self.shards])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,24 +203,35 @@ class Placement:
             return list(self.mesh.devices.ravel())
         return self.mesh.axis_devices(self.spec[0])
 
+    @property
+    def ranks(self) -> List[int]:
+        """The rank holding each of ``devices``."""
+        if not self.spec:
+            return [int(r) for r in self.mesh.ranks.ravel()]
+        return self.mesh.axis_ranks(self.spec[0])
+
     def put(self, x) -> Sharded:
         """Copy ``x`` (a host array or a tensor) onto the placement's
-        devices; a split needs the first axis to divide evenly."""
+        devices, each process only the shards it holds; a split needs the
+        first axis to divide evenly."""
         if self.spec and (self.spec[0] is None
                           or any(a is not None for a in self.spec[1:])):
             raise ValueError(f"only the first axis can be split, got {self.spec}")
         t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
             np.ascontiguousarray(np.asarray(x)))
-        devs = self.devices
+        devs, me = self.devices, self.mesh.rank
+        held = [r == me for r in self.ranks]
         if not self.spec:
-            return Sharded([t.to(d, copy=True) for d in devs], [0] * len(devs), self)
+            return Sharded([t.to(d, copy=True) if h else None for d, h in zip(devs, held)],
+                           [0] * len(devs), self)
         n, z = len(devs), int(t.shape[0])
         if z % n:
             raise ValueError(f"axis of {z} does not split evenly over {n} shards "
                              "(shard_volume pads it)")
         k = z // n
-        return Sharded([t.narrow(0, i * k, k).to(d, copy=True) for i, d in enumerate(devs)],
-                       [i * k for i in range(n)], self)
+        return Sharded([t.narrow(0, i * k, k).to(d, copy=True) if h else None
+                        for i, (d, h) in enumerate(zip(devs, held))],
+                       [i * k for i in range(n)], self, z)
 
 
 def z_sharding(mesh: ShardMesh) -> Placement:

@@ -11,6 +11,10 @@ device or, with ``shards``, over a shard list as bench.py's sharded branch).
     res = pipeline.run(ct, pipeline.bench_markers(512), "out.stl",
                        shards=make_mesh(8))  # 8 Z-slabs over the cards
     print(res.cuts, res.watershed_stats["rounds"], res.times)
+
+Across processes every rank calls the same ``run`` with the same host
+arrays and a mesh from ``distributed.global_mesh()`` (after
+``distributed.initialize()``); rank 0 writes the STL.
 """
 
 from __future__ import annotations
@@ -68,13 +72,15 @@ def bench_markers(n: int) -> np.ndarray:
 class Result:
     labels: Union[torch.Tensor, Sharded]  # watershed labels, int16
     mesh: Optional[marching.DeviceMesh]   # smoothed mesh as written (one device)
-    times: Dict[str, float]               # seconds per stage
+    times: Dict[str, float]               # seconds per stage (this process's)
     # the sharded flow's: (verts_sh, faces_sh, checks, meta) of
     # sharded_mask_to_surface, the Z cuts, and the watershed's stats
-    # ("rounds" and "halo_bytes" per level, sweep "launches" per shard)
+    # ("rounds", "halo_bytes" and "wire_bytes" per level, sweep "launches"
+    # per shard), gathered from every process
     parts: Optional[tuple] = None
     cuts: Optional[List[int]] = None
     watershed_stats: Optional[dict] = None
+    stl: Optional[str] = None  # the file written (None on a rank that did not write)
 
 
 def _sync(device: torch.device) -> None:
@@ -83,7 +89,8 @@ def _sync(device: torch.device) -> None:
 
 
 def _sync_mesh(shards: ShardMesh) -> None:
-    for d in {d for d in shards.devices.ravel() if d.type == "cuda"}:
+    held = shards.devices.ravel()[shards.ranks.ravel() == shards.rank]
+    for d in {d for d in held if d.type == "cuda"}:
         torch.cuda.synchronize(d)
 
 
@@ -101,7 +108,10 @@ def run(ct: np.ndarray, markers: np.ndarray, out_path, device=DEFAULT_DEVICE,
     as bench.py's sharded branch: ``sharded_watershed(stop="label",
     quiet_rounds=2)``, label 1 as the mask, the balanced fused surface and
     smoothing, ``write_stl_sharded``; ``rounds`` then receives the rounds
-    per level, coarse to fine."""
+    per level, coarse to fine.  Across processes (``shards`` from
+    ``distributed.global_mesh()``) every rank runs it on the same host
+    arrays and holds its own shards; rank 0 writes ``out_path`` and its
+    ``Result.stl`` names it."""
     device = resolve_device(device)
     if shards is not None:
         return _run_sharded(ct, markers, out_path, device, shards, sweep, rounds)
@@ -134,7 +144,7 @@ def run(ct: np.ndarray, markers: np.ndarray, out_path, device=DEFAULT_DEVICE,
     dm = dataclasses.replace(dm, verts3v=out3v)
     mesh_io.write_stl_from_device(out_path, dm, face_stream=faces)
     times["stl"] = time.perf_counter() - t0
-    return Result(labels=labels, mesh=dm, times=times)
+    return Result(labels=labels, mesh=dm, times=times, stl=str(out_path))
 
 
 def _run_sharded(ct, markers, out_path, device: torch.device, shards: ShardMesh,
@@ -172,7 +182,8 @@ def _run_sharded(ct, markers, out_path, device: torch.device, shards: ShardMesh,
     times.update(parts[3]["times"])
 
     t0 = time.perf_counter()
-    mesh_io.write_stl_sharded(out_path, parts[0], parts[1])
+    mesh_io.write_stl_sharded(out_path, parts[0], parts[1], shards=shards)
     times["stl"] = time.perf_counter() - t0
     return Result(labels=labels, mesh=None, times=times, parts=parts,
-                  cuts=parts[3]["cuts"], watershed_stats=ws_stats)
+                  cuts=parts[3]["cuts"], watershed_stats=ws_stats,
+                  stl=str(out_path) if shards.rank == 0 else None)

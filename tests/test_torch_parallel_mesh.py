@@ -139,12 +139,14 @@ def test_global_mesh_of_local_cards(monkeypatch):
 
 
 _CHILD = textwrap.dedent("""
-    import os, sys, torch.distributed as dist
+    import hashlib, os, sys, numpy as np, torch, torch.distributed as dist
     from invesalius3_tpu_torch.parallel import distributed as d
+    from invesalius3_tpu_torch.parallel.mesh_utils import shard_volume
     rank = int(os.environ["RANK"])
     assert d.is_multiprocess_env()
     assert d.initialize(device="cpu") is True
     assert d.initialize(device="cpu") is True  # idempotent
+    assert dist.get_backend() == "gloo"
     assert d.process_info() == (rank, 2), d.process_info()
     assert d.local_data_slice(8) == slice(4 * rank, 4 * rank + 4)
     try:
@@ -152,20 +154,30 @@ _CHILD = textwrap.dedent("""
         sys.exit("an uneven batch did not raise")
     except ValueError:
         pass
-    try:
-        d.global_mesh(device="cpu")
-        sys.exit("global_mesh returned local devices in a 2-process group")
-    except NotImplementedError as e:
-        assert "ROADMAP Queue 1" in str(e)
+    mesh = d.global_mesh(device="cpu")  # one shard a process
+    assert mesh.shape == {"z": 2} and mesh.ranks.tolist() == [0, 1] and mesh.rank == rank
+    mesh = d.global_mesh(shape=(6,), device="cpu")  # host-major: 0, 1, 2 on rank 0
+    assert mesh.ranks.tolist() == [0, 0, 0, 1, 1, 1], mesh.ranks
+    assert d.global_mesh(("data", "z"), device="cpu").shape == {"data": 2, "z": 1}
+    v = np.arange(13 * 4 * 5, dtype=np.int16).reshape(13, 4, 5)
+    sv = shard_volume(v, mesh)
+    assert sv.shape == (18, 4, 5) and sv.local == [3 * rank, 3 * rank + 1, 3 * rank + 2]
+    assert all((a is None) == (s // 3 != rank) for s, a in enumerate(sv.shards))
+    whole = sv.gather()
+    assert torch.equal(whole[:13], torch.from_numpy(v)) and not whole[13:].any()
+    flags = sv.map(lambda a: a.bool())
+    assert flags.gather().dtype == torch.bool and flags.shape == (18, 4, 5)
+    print("ok", rank, hashlib.sha256(whole.numpy().tobytes()).hexdigest())
     dist.barrier()
     dist.destroy_process_group()
-    print("ok", rank)
 """)
 
 
 def test_distributed_two_processes_over_gloo():
     """Two processes join one gloo group from torch's launcher variables:
-    process ids, data slices and the refusal of a cross-process mesh."""
+    process ids, data slices, the host-major mesh over both (each rank
+    holds its own shards) and ``Sharded.gather()``, the same whole array
+    on both ranks."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -184,9 +196,13 @@ def test_distributed_two_processes_over_gloo():
         for p in procs:
             p.kill()
             p.wait(timeout=10)
+    digests = set()
     for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, err
-        assert out.strip() == f"ok {rank}"
+        word, got_rank, digest = out.split()
+        assert (word, got_rank) == ("ok", str(rank))
+        digests.add(digest)
+    assert len(digests) == 1
 
 
 @pytest.mark.parametrize("conn,shape,seed,p", [(6, (16, 16, 16), 0, 0.8),

@@ -1,4 +1,4 @@
-"""chip_smoke.py's phase [17] rehearsed on the CPU at small sizes: the
+"""chip_smoke.py's phases [17] and [18] rehearsed on the CPU at small sizes: the
 small cases on two CPU meshes, the sharded watershed through the given and
 the plain sweep, and the sharded flow against the single-device path with
 the phase's own checks (labels that differ are cost ties, the surface of
@@ -25,14 +25,32 @@ def chip_smoke():
     sys.modules.pop("chip_smoke", None)
 
 
-def test_chip_smoke_phase_17_on_the_cpu(chip_smoke, tmp_path):
-    out = chip_smoke.sharded_phase(CPU, tmp_path, n=32, small=32, ws_n=32,
-                                   times_4={"h2d": 0.0}, share_limit=0.1)
+@pytest.fixture(scope="module")
+def phase_17(chip_smoke, tmp_path_factory):
+    return chip_smoke.sharded_phase(CPU, tmp_path_factory.mktemp("p17"), n=32, small=32,
+                                    ws_n=32, times_4={"h2d": 0.0}, share_limit=0.1)
+
+
+def test_chip_smoke_phase_17_on_the_cpu(phase_17, chip_smoke):
+    out = phase_17
     assert out["launches"] == {0: 0, 1: 0, 2: 0}  # no kernel on the CPU
     assert len(out["halo_bytes"]) == len(out["rounds"])
     assert out["check"]["labels"]["untied"] == 0
     assert out["check"]["max_err_mm"] < chip_smoke.SMOOTH_TOL
     assert out["cuts"][0] == 0 and out["cuts"][-1] == 32
+
+
+def test_chip_smoke_phase_18_on_the_cpu(phase_17, chip_smoke, tmp_path):
+    """Phase [18]'s two ranks over gloo at 32^3 on the CPU: every rank's
+    labels, rounds, halo bytes, cuts, checks and the STL equal phase
+    [17]'s one-process run (the phase asserts it)."""
+    out = chip_smoke.cross_process_phase(CPU, tmp_path, phase_17, n=32)
+    assert out["launches"] == {0: 0, 1: 0, 2: 0}  # no kernel on the CPU
+    ranks = out["gloo"]
+    assert [g["rank"] for g in ranks] == [0, 1] and ranks[0]["backend"] == "gloo"
+    assert not ranks[0]["staged"]  # host tensors need no staging
+    assert all(w > 0 for w in ranks[0]["wire_bytes"]) and ranks[0]["surface_wire_bytes"] > 0
+    assert [bool(g["stl"]) for g in ranks] == [True, False]
 
 
 def test_label_agreement_finds_untied_voxels(chip_smoke):
