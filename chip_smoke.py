@@ -191,8 +191,9 @@ Phases, each fatal on failure (no phase catches an error):
    floodfill, a brush stroke and the mask statistics, the watershed from
    the bench's three markers (its mask the direct ``watershed``'s), the
    ca_smoothing surface (its STL bytes the direct surface's), the Bone
-   render at 512 and the scene, linear, angular and density measures, a
-   pick, the histogram (its counts numpy's on the same edges), a navigation
+   render at 512 and the scene on an imported sphere shell's surface below
+   the renderer's 200k-triangle decimation threshold (the large surface
+   hidden meanwhile), linear, angular and density measures, a pick, the histogram (its counts numpy's on the same edges), a navigation
    round with the pedal and mTMS, a trachea DL job (its mask the direct
    segmenter's, same seeded weights), the language round trip, events and
    log.  Each endpoint's wall ms (a GET the
@@ -261,9 +262,26 @@ Phases, each fatal on failure (no phase catches an error):
    rank's non-zero exit or a collective's timeout fails the phase.  It
    prints the backend, the per-rank stage times, the bytes that crossed
    between the ranks and each rank's peak device memory.
+19. trains the U-Net (``training_phase``): ``Unet3D(init_features=8,
+   dtype=bfloat16)`` from seeded Flax-style weights on a global batch of 8
+   patches of 96^3 (``make_ct(192)``'s 2x2x2 grid, windowed and rescaled as
+   ``TracheaSegmenter`` does; the targets their Bone threshold),
+   ``train.train_step`` (train-mode batch norms, BCE, Adam at 1e-3): (a)
+   five steps in one process, every loss finite and the fifth below the
+   first, the median step ms of steps 2-5, the peak memory, the share of
+   the dense bf16 peak (3 x ``unet3d_flops(96)`` x 8 a step) and a
+   profiled step's idle share, then the first two steps in float32; (b)
+   two ranks on the one card over gloo (card tensors staged through
+   pinned host buffers), 4 patches each, the batch norms' statistics and
+   the gradients summed over the group, in bfloat16 and float32: each
+   rank's losses, running statistics, gradients and parameters equal
+   (a)'s (``BF16_TOL`` on the first step and every loss; ``CARD_DP_TOL``
+   in float32); (c) one float32 step at 48^3, batch 2, on the card and on
+   the CPU, equal within ``CARD_TOL``.  No kernel lies
+   on this path (the counts must stay 0).
 
-It prints the card's name and power limit first, a JSON line of the
-kernels before the last line, and as the last line
+It prints the card's name and power limit first, the whole run's seconds
+and a JSON line of the kernels before the last line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it exits with status 1 and prints no result.
 """
@@ -275,6 +293,7 @@ import dataclasses
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -294,7 +313,7 @@ from invesalius3_tpu_torch.core.volume import Volume
 from invesalius3_tpu_torch.io import dicom, mesh_io, nifti
 from invesalius3_tpu_torch.io import dicom_codecs as codecs
 from invesalius3_tpu_torch.core.surface import Surface, create_surface_from_mask
-from invesalius3_tpu_torch.models import fastsurfer, onnx_convert, segment, unet2d, unet3d
+from invesalius3_tpu_torch.models import fastsurfer, onnx_convert, segment, train, unet2d, unet3d
 from invesalius3_tpu_torch.models import layers as mlayers
 from invesalius3_tpu_torch.navigation.tracker import TrackerCoordinates
 from invesalius3_tpu_torch.net import download
@@ -493,6 +512,7 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
 
+    t_run = time.perf_counter()
     t0 = time.perf_counter()
     builds = _build.build_all()
     log(f"[1] build: {time.perf_counter() - t0:.2f} s")
@@ -544,6 +564,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_procs_") as d:
         procs = cross_process_phase(dev, Path(d), sharded)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as d:
+        training_phase(dev, Path(d))
 
     # the sweeps' launches on the main paths: the single-device flow of
     # phase [4], the sharded flow of phase [17] and its ranks' in phase
@@ -561,6 +584,7 @@ def main() -> int:
          "replaces": RAY_REPLACES[k], "launches": ray_launches[k][axis],
          "max_abs_err": errs[(k, axis)], **ray_times[(k, axis)]}
         for k in RAY_FNS for axis in (0, 1, 2)]
+    log(f"phases [1]-[19]: {time.perf_counter() - t_run:.1f} s ({smi})")
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -697,21 +721,29 @@ def export_turns(dm, tmp: Path, pairs: int = 3) -> dict:
     return times
 
 
-def profile_flow(dev, ct, markers, out: Path) -> None:
-    """One warm flow under torch.profiler: the device's kernel and copy
-    time, its idle share of the run's wall time, and the largest kernels."""
+def _profiled(dev, fn):
+    """``fn()`` under torch.profiler: (its wall seconds, the device's kernel
+    and copy seconds, rows (name, device ms, count) of those kernels and
+    copies)."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if dev.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        pipeline.run(ct, markers, out, device=dev)
+        fn()
         wall = time.perf_counter() - t0
-    # kernels and copies only: an aten op's row repeats its kernels' time
+    # the device's own events (kernels and copies): a host op's row, an
+    # aten op or an autograd node, repeats its kernels' time
     rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_time_total > 0 and not e.key.startswith(("aten::", "cuda"))
+            if e.device_type != torch.autograd.DeviceType.CPU and e.device_time_total > 0
             and "Activity Buffer" not in e.key]
-    busy = sum(ms for _, ms, _ in rows) / 1e3
+    return wall, sum(ms for _, ms, _ in rows) / 1e3, rows
+
+
+def profile_flow(dev, ct, markers, out: Path) -> None:
+    """One warm flow under torch.profiler: the device's kernel and copy
+    time, its idle share of the run's wall time, and the largest kernels."""
+    wall, busy, rows = _profiled(dev, lambda: pipeline.run(ct, markers, out, device=dev))
     log(f"  profiled run: wall {wall:.4f} s, device kernel and copy time "
         f"{busy:.4f} s, idle share {1 - busy / wall:.1%}")
     for name, ms, count in sorted(rows, key=lambda r: -r[1])[:12]:
@@ -2371,17 +2403,7 @@ def implant_oracle(seg, image: np.ndarray, prob: np.ndarray) -> float:
 def profile_segmenter(dev, seg, image) -> None:
     """One warm segmentation under torch.profiler: the device's kernel and
     copy time, its idle share of the wall time, and the largest kernels."""
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if dev.type == "cuda":
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        seg.segment(image)
-        wall = time.perf_counter() - t0
-    rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_time_total > 0 and not e.key.startswith(("aten::", "cuda"))
-            and "Activity Buffer" not in e.key]
-    busy = sum(ms for _, ms, _ in rows) / 1e3
+    wall, busy, rows = _profiled(dev, lambda: seg.segment(image))
     log(f"    profiled BrainSegmenter run: wall {wall:.4f} s, device kernel and copy time "
         f"{busy:.4f} s, idle share {1 - busy / wall:.1%}")
     for name, ms, count in sorted(rows, key=lambda r: -r[1])[:10]:
@@ -3242,6 +3264,8 @@ def navigation_phase(dev, n: int = NAV_MRI_N, jfa_n: int = NAV_JFA_N,
 # ---------------------------------------------------------------------------
 
 SERVER_N = 512  # make_ct(512), int16 at 0.5 mm: 256 MiB on the card
+SCENE_SHELL_N = 64  # the scene's surface: a sphere shell's mask at 64^3, spread over the CT
+SCENE_MAX_TRIANGLES = 200_000  # the scene renderer decimates a surface above this
 SERVER_REPS = 5  # each GET's wall time is the median of this many
 # the projection types phase 15 drives, and their RGB tolerance against the
 # direct frame (tests/test_torch_slab_viewer.py:7-8: MIDA within 1 on the
@@ -3336,11 +3360,13 @@ def _host_histogram(ct: np.ndarray, edges) -> np.ndarray:
 def viewer_server_phase(dev, tmp: Path, n: int = SERVER_N, reps: int = SERVER_REPS) -> dict:
     """Phase 15: the port's ViewerServer over make_ct(n) on ``dev``, driven
     over HTTP as the web client drives it; each result held to the direct
-    call on the same device.  The STL (300 MB at 512^3) and the scene (its
-    renderer decimates a surface above 200k triangles by QEM on every
-    call, about a minute at 512^3, as the JAX renderer does) are fetched
-    once.  Returns the wall ms per
-    endpoint, the launch counts and the peak memory."""
+    call on the same device.  The STL (300 MB at 512^3) is fetched once,
+    and the scene once, on a sphere shell's surface imported through the
+    server below the renderer's 200k-triangle decimation threshold (the
+    renderer decimates a larger surface by QEM on every call, about a
+    minute at 512^3, as the JAX renderer does), the large surface hidden
+    meanwhile.  Returns the wall ms per endpoint, the launch counts and the
+    peak memory."""
     import os
 
     from invesalius3_tpu_torch import server as server_mod
@@ -3447,12 +3473,29 @@ def viewer_server_phase(dev, tmp: Path, n: int = SERVER_N, reps: int = SERVER_RE
         log(f"  surface: {surf['triangles']} triangles, STL {len(stl)} bytes (equal)")
         del stl, direct
 
-        # 8: volume render and the surface scene
+        # 8: volume render and the surface scene.  The scene shows a surface
+        # below the renderer's 200k-triangle decimation threshold (a sphere
+        # shell imported through the server), the large one hidden meanwhile:
+        # QEM decimation stays driven by phase [9]
         img = _png_rgb(cl.get("/api/render?preset=Bone&size=512")[2])
+        sv, sf = marching.mask_to_surface(_shell(SCENE_SHELL_N, 0.3 * SCENE_SHELL_N,
+                                                 0.4 * SCENE_SHELL_N),
+                                          (n * float(pipeline.SPACING[0]) / SCENE_SHELL_N,) * 3,
+                                          device=dev)
+        mesh_io.write_stl(tmp / "shell.stl", sv, sf)
+        small = _ok(*cl.post("/api/surface/import", {"path": str(tmp / "shell.stl")}),
+                    "surface import")
+        if not 0 < small["triangles"] < SCENE_MAX_TRIANGLES:
+            raise AssertionError(f"scene surface: {small['triangles']} triangles")
+        _ok(*cl.post("/api/surface/props", {"index": surf["index"], "visible": False}), "hide")
         scene = _png_rgb(cl.get("/api/render_scene?size=256", reps=1)[2])
+        _ok(*cl.post("/api/surface/props", {"index": surf["index"], "visible": True}), "show")
+        _ok(*cl.post("/api/surface/remove", {"index": small["index"]}), "surface remove")
         if img.shape != (512, 512, 3) or scene.shape != (256, 256, 3) or img.max() == 0 \
                 or len(np.unique(scene.reshape(-1, 3), axis=0)) < 2:
             raise AssertionError("render: empty frames")
+        log(f"  scene: a {small['triangles']}-triangle surface, the {surf['triangles']}-triangle "
+            "one hidden")
 
         # 9: measures, a pick, the histogram
         for body in ({"kind": "linear", "p1": [10.0, 20.0, 30.0], "p2": [100.0, 120.0, 30.0]},
@@ -4676,19 +4719,35 @@ def _flow_rank(mesh, dev, tmp: Path, n: int) -> dict:
 
 
 def rank_main(kind: str, out_dir: str, n: int, device: str, n_shards: int,
-              backend=None, fail_rank: int = -1) -> None:
+              backend=None, fail_rank: int = -1, job=None) -> None:
     """One rank of a group launched by ``spawn_ranks`` (torch's launcher
     variables in the environment): joins the group, lays ``n_shards``
     shards over the ranks (a group of one is the one-process shard list)
     and runs ``kind``: "cases" (``process_cases``, pickled), "flow"
     (``_flow_rank``, JSON) or "fail" (the watershed, whose sweep raises on
-    ``fail_rank`` in its second round)."""
+    ``fail_rank`` in its second round).  "train" lays no shards: for each
+    dtype name and step count of ``job["runs"]`` it runs ``train_run(p=n,
+    batch=n_shards, steps, dtype, f=job["f"])`` on this rank's rows of the
+    batch, the batch norms and gradients over the group (pickled by dtype
+    name)."""
     import pickle
 
     out = Path(out_dir)
     if device == "cpu":  # several ranks share the host's cores
         torch.set_num_threads(1)
     distributed.initialize(device=device, backend=backend, timeout=PROC_TIMEOUT_S)
+    if kind == "train":
+        rank, _ = distributed.process_info()
+        dev = (torch.device("cuda", torch.cuda.current_device()) if device == "cuda"
+               else torch.device("cpu"))
+        group = torch.distributed.group.WORLD if torch.distributed.is_initialized() else None
+        recs = {name: train_run(dev, n, n_shards, steps, getattr(torch, name), job["f"],
+                                group, distributed.local_data_slice(n_shards))[0]
+                for name, steps in job["runs"].items()}
+        (out / f"rank{rank}.pkl").write_bytes(pickle.dumps(recs))
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        return
     mesh = distributed.global_mesh(shape=(n_shards,), device=device)
     dev = mesh.devices.ravel()[mesh.ranks.ravel() == mesh.rank][0]
     if kind == "cases":
@@ -4714,9 +4773,10 @@ def rank_main(kind: str, out_dir: str, n: int, device: str, n_shards: int,
 
 def spawn_ranks(kind: str, world: int, out_dir: Path, n: int, device: str, n_shards: int,
                 backend=None, timeout: float = 300.0, fail_rank: int = -1,
-                kill_on_failure: bool = True, env=None) -> list:
+                kill_on_failure: bool = True, env=None, job=None) -> list:
     """Start ``world`` ranks of ``rank_main`` on this host (torch's launcher
-    variables, a free port on 127.0.0.1, and ``env`` on top) and wait for
+    variables, a free port on 127.0.0.1, and ``env`` on top; ``job`` is
+    "train"'s keyword arguments, Python literals) and wait for
     them: on the first rank that exits non-zero the others are killed
     (unless ``kill_on_failure`` is False), and every rank is killed at
     ``timeout``.  Returns each rank's (exit code, stdout, stderr, seconds
@@ -4726,7 +4786,7 @@ def spawn_ranks(kind: str, world: int, out_dir: Path, n: int, device: str, n_sha
     root = str(Path(__file__).resolve().parent)
     code = (f"import sys; sys.path.insert(0, {root!r}); import chip_smoke; "
             f"chip_smoke.rank_main({kind!r}, {str(out_dir)!r}, {n}, {device!r}, {n_shards}, "
-            f"{backend!r}, {fail_rank})")
+            f"{backend!r}, {fail_rank}, {job!r})")
     procs = []
     ended = [None] * world
     t0 = time.perf_counter()
@@ -4838,6 +4898,232 @@ def cross_process_phase(dev, tmp: Path, ref: dict, n: int = SHARDED_N,
     result.update(launches=launches, seconds=seconds)
     return result
 
+
+# ---------------------------------------------------------------------------
+# phase 19: training
+# ---------------------------------------------------------------------------
+
+TRAIN_P = 96  # the trachea and mandible patch side
+TRAIN_BATCH = 8  # the global batch: make_ct(2 * TRAIN_P)'s 2x2x2 grid of patches
+TRAIN_STEPS = 5
+TRAIN_F32_STEPS = 2  # the float32 runs (a step takes 1.6 s at 96^3 on an H100, 6x bf16's)
+TRAIN_F = 8  # the published init_features
+TRAIN_SEED = 19  # the weights' generator
+TRAIN_CHECK = (48, 2)  # (c): patch side and batch of the float32 step, card against CPU
+TRAIN_WORLD = 2  # (b): ranks on the one card over gloo
+TRAIN_WW_WL = (2000.0, -500.0)  # TracheaSegmenter's window, applied before the [0, 1] rescale
+# bounds of ``compare_training`` (their measured values in PERF.md, §6).
+# DP_TOL: ranks against one process in float32 on the CPU
+# (tests/test_torch_train_procs.py).  On the card cuDNN's float32
+# algorithms, chosen per shape, round otherwise at a batch of 4 and of 8 and
+# than oneDNN, and the deep layers' gradients carry that rounding at a few
+# 1e-3 of their norm (later steps more, through Adam): CARD_DP_TOL for the
+# float32 ranks against one process, CARD_TOL for a float32 step on the
+# card against the CPU (its first Adam step is about -lr sign(g), so it is
+# held by the gradients, not by the parameters).  BF16_TOL: bfloat16 ranks
+# against one process, bounded on the first step and every loss (every
+# bfloat16 gradient carries rounding noise of 10-30% of its norm, which
+# Adam carries into later steps: their statistics and parameters are
+# measured, inf, not bounded).  A data-parallel fault moves the first
+# step's statistics by 0.2 or its gradients by 0.9 (per-rank statistics,
+# unsummed gradients; mutation checks on the CPU).
+DP_TOL = {"loss": 1e-5, "stats1": 1e-5, "stats": 1e-2, "grads": 1e-3, "params": 0.15}
+CARD_DP_TOL = {"loss": 1e-4, "stats1": 1e-5, "stats": 0.15, "grads": 1e-2, "params": 0.15}
+CARD_TOL = {"loss": 1e-5, "stats1": 1e-4, "grads": 1e-2}
+BF16_TOL = {"loss": 1e-2, "stats1": 1e-2, "grads": 3e-2, "stats": float("inf"),
+            "params": float("inf")}
+
+
+def train_batch(p: int, batch: int, dev):
+    """(x, y) of the training runs: ``make_ct(2 p)`` windowed and rescaled
+    to [0, 1] as ``TracheaSegmenter`` does, cut into its 2x2x2 grid of p^3
+    patches, the first ``batch`` of them as (batch, 1, p, p, p) float32;
+    the targets are the Bone threshold of the same patches (0 or 1)."""
+    from invesalius3_tpu_torch.ops.windowing import get_lut_value_255
+
+    img = torch.from_numpy(pipeline.make_ct(2 * p)).to(dev)
+    norm = segment.image_normalize(get_lut_value_255(img, *TRAIN_WW_WL))
+    lo, hi = const.THRESHOLD_PRESETS_CT["Bone"]
+    bone = ((img >= lo) & (img <= hi)).to(torch.float32)
+    corners = [(z, yy, xx) for z in (0, p) for yy in (0, p) for xx in (0, p)][:batch]
+    cut = lambda v: torch.stack([v[z:z + p, yy:yy + p, xx:xx + p]  # noqa: E731
+                                 for z, yy, xx in corners])[:, None].contiguous()
+    return cut(norm), cut(bone)
+
+
+def pre_norm_bias(name: str) -> bool:
+    """A conv bias that feeds a train-mode batch norm.  The norm subtracts
+    the batch's mean, so the bias's gradient is zero and what autograd
+    computes for it is rounding noise, which Adam's first steps scale to
+    +-lr: the comparisons leave such parameters out."""
+    return re.search(r"_conv\d?\.bias$", name) is not None
+
+
+def train_run(dev, p: int, batch: int, steps: int, dtype=torch.bfloat16, f: int = TRAIN_F,
+              group=None, rows: slice = slice(None), seed: int = TRAIN_SEED):
+    """``steps`` of ``train.train_step`` on ``dev``: ``Unet3D(init_features=f,
+    dtype)`` from ``layers.init_state`` of a generator seeded ``seed``,
+    ``optax.adam(1e-3)``'s step, on ``rows`` of ``train_batch(p, batch)``
+    with the batch norms' statistics over ``group``.  Returns (the host
+    record: each step's loss and wall ms, the first step's gradients and
+    running statistics, the last step's statistics, the parameters before
+    and after, the peak device memory; (model, optimizer, x, y))."""
+    x, y = train_batch(p, batch, dev)
+    x, y = x[rows], y[rows]
+    model = unet3d.Unet3D(init_features=f, dtype=dtype)
+    model.load_state_dict(mlayers.init_state(model, torch.Generator().manual_seed(seed)))
+    model.to(dev)
+    params = lambda: {k: v.detach().cpu().clone() for k, v in model.named_parameters()}  # noqa: E731
+    stats = lambda: {k: v.cpu().clone() for k, v in model.state_dict().items()  # noqa: E731
+                     if "running" in k}
+    opt = train.adam(model.parameters())
+    out = {"losses": [], "ms": [], "params0": params()}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    for i in range(steps):
+        _sync(dev)
+        t0 = time.perf_counter()
+        out["losses"].append(float(train.train_step(model, opt, x, y, group)))
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            out["grads"] = {k: v.grad.cpu().clone() for k, v in model.named_parameters()}
+            out["stats1"] = stats()
+    out.update(stats=stats(), params=params(), peak_gib=(
+        torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0))
+    return out, (model, opt, x, y)
+
+
+def _norm_rel(got, want) -> float:
+    return float(torch.linalg.vector_norm((got - want).double())
+                 / torch.linalg.vector_norm(want.double()).clamp_min(1e-30))
+
+
+def compare_training(got: dict, want: dict, tol: dict, what: str) -> dict:
+    """``got``'s training record (``train_run``) held to ``want``'s on the
+    entries of ``tol``: "loss" each step's loss (relative), "stats1" and
+    "stats" the running statistics after the first and the last step
+    (each difference over |w| plus the tensor's largest |w|), "grads" the
+    first step's gradients (the norm of each difference over the larger of
+    the reference's norm and 1% of the whole gradient's: a gradient that
+    is small against the whole sums terms that cancel) and "params" each
+    parameter's change over the run (the norm of the difference over the
+    reference's); the parameters ``pre_norm_bias`` names are left out of
+    both.  Returns the worst error of each; raises past a bound."""
+    if len(got["losses"]) != len(want["losses"]):
+        raise AssertionError(f"{what}: {len(got['losses'])} steps, want {len(want['losses'])}")
+    kept = [n for n in want["params"] if not pre_norm_bias(n)]
+    whole = float(torch.linalg.vector_norm(torch.cat(
+        [want["grads"][n].reshape(-1).double() for n in kept])))
+    measure = {
+        "loss": lambda: max(abs(g - w) / abs(w) for g, w in zip(got["losses"], want["losses"])),
+        "grads": lambda: max(float(torch.linalg.vector_norm((got["grads"][n] - want["grads"][n])
+                                                            .double())) / max(float(
+            torch.linalg.vector_norm(want["grads"][n].double())), 0.01 * whole) for n in kept),
+        "params": lambda: max(_norm_rel(got["params"][n] - got["params0"][n],
+                                        want["params"][n] - want["params0"][n]) for n in kept)}
+    for k in ("stats1", "stats"):
+        measure[k] = lambda k=k: max(float(((got[k][n] - want[k][n]).abs() / (
+            want[k][n].abs() + want[k][n].abs().max())).max()) for n in want[k])
+    errs = {k: measure[k]() for k in tol}
+    if any(not errs[k] <= tol[k] for k in tol):
+        raise AssertionError(f"{what}: errors {errs} past {tol}")
+    return errs
+
+
+def profile_train_step(dev, model, opt, x, y) -> float:
+    """One more training step under torch.profiler: its wall ms, the
+    device's kernel and copy time and idle share, the largest kernels.
+    Returns the idle share."""
+    wall, busy, rows = _profiled(dev, lambda: float(train.train_step(model, opt, x, y)))
+    log(f"  profiled step: wall {wall * 1e3:.3f} ms, device kernel and copy time "
+        f"{busy * 1e3:.3f} ms, idle share {1 - busy / wall:.1%}")
+    for name, ms, count in sorted(rows, key=lambda r: -r[1])[:8]:
+        log(f"    {ms:9.3f} ms {count:5d}x  {name[:90]}")
+    return 1 - busy / wall
+
+
+def training_phase(dev, tmp: Path, p: int = TRAIN_P, batch: int = TRAIN_BATCH,
+                   steps: int = TRAIN_STEPS, f32_steps: int = TRAIN_F32_STEPS,
+                   f: int = TRAIN_F, check=TRAIN_CHECK, world: int = TRAIN_WORLD) -> dict:
+    """Phase 19: ``Unet3D(init_features=f, dtype=bfloat16)`` trained on the
+    card.  (a) ``steps`` Adam steps on a global batch of ``batch`` patches
+    of p^3 in one process: every loss finite and the last below the first;
+    the median step ms of steps 2 on, the peak memory, the share of the
+    dense bf16 peak (3 forward passes a step) and a profiled step's idle
+    share; then ``f32_steps`` of them in float32.  (b) ``world`` ranks on the one
+    card over gloo, each on its rows of the same batch, the batch norms'
+    statistics and the gradients summed over the group, in bfloat16 and in
+    float32: each rank's record equals (a)'s within ``BF16_TOL`` and
+    ``CARD_DP_TOL`` (``DP_TOL`` on the CPU).  (c) one float32 step at
+    ``check`` (patch side, batch) on the card and on the CPU, equal within
+    ``CARD_TOL``.  No hot-path kernel
+    lies on this path (the counts must stay 0)."""
+    import pickle
+
+    card = "cpu"
+    if dev.type == "cuda":
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    log(f"[19] training: Unet3D(init_features={f}), {batch} patches of {p}^3, {steps} Adam "
+        f"steps ({card})")
+    t_phase = time.perf_counter()
+    kernels.reset_launches()
+    rays.reset_launches()
+
+    a, (model, opt, x, y) = train_run(dev, p, batch, steps, torch.bfloat16, f)
+    if not all(np.isfinite(a["losses"])) or not a["losses"][-1] < a["losses"][0]:
+        raise AssertionError(f"[19] (a) losses {a['losses']}")
+    step_ms = float(np.median(a["ms"][1:]))
+    flops = 3 * unet3d_flops(p, f) * batch
+    tflops = flops / (step_ms / 1e3) / 1e12
+    log(f"  (a) one process, bfloat16: losses {a['losses']}; step ms "
+        f"{[round(v, 3) for v in a['ms']]}; median of steps 2-{steps} {step_ms:.3f} ms; peak "
+        f"{a['peak_gib']:.2f} GiB; {flops / 1e12:.3f} TFLOP a step, {tflops:.2f} TFLOP/s, "
+        f"{tflops / BF16_DENSE_TFLOPS:.2%} of the dense bf16 peak ({card})")
+    idle = profile_train_step(dev, model, opt, x, y)
+    del model, opt, x, y
+    a32, _ = train_run(dev, p, batch, f32_steps, torch.float32, f)
+    log(f"  (a) one process, float32: losses {a32['losses']}; step ms "
+        f"{[round(v, 3) for v in a32['ms']]}; peak {a32['peak_gib']:.2f} GiB")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    one_card = {"CUDA_VISIBLE_DEVICES": os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]}
+    runs = spawn_ranks("train", world, tmp / "ranks", p, dev.type, batch, backend="gloo",
+                       timeout=600.0, env=one_card if dev.type == "cuda" else None,
+                       job={"f": f, "runs": {"bfloat16": steps, "float32": f32_steps}})
+    _check_ranks(runs, "[19] (b)")
+    b_errs = []
+    for r in range(world):
+        got = pickle.loads((tmp / "ranks" / f"rank{r}.pkl").read_bytes())
+        for name, want, tol in (("bfloat16", a, BF16_TOL), (
+                "float32", a32, CARD_DP_TOL if dev.type == "cuda" else DP_TOL)):
+            b_errs.append(compare_training(got[name], want, tol, f"[19] (b) rank {r} {name}"))
+            log(f"  (b) rank {r} of {world} (gloo, {batch // world} patches), {name}: losses "
+                f"{got[name]['losses']}; step ms {[round(v, 3) for v in got[name]['ms']]}; "
+                f"peak {got[name]['peak_gib']:.2f} GiB; against (a): {b_errs[-1]}")
+    log(f"  (b): {time.perf_counter() - t0:.1f} s with start-up")
+
+    cp, cb = check
+    c_card, _ = train_run(dev, cp, cb, 1, torch.float32, f)
+    c_cpu, _ = train_run(torch.device("cpu"), cp, cb, 1, torch.float32, f)
+    c_errs = compare_training(c_card, c_cpu, CARD_TOL, "[19] (c)")
+    log(f"  (c) one float32 step at {cp}^3, batch {cb}: card {c_card['losses'][0]:.7f}, "
+        f"CPU {c_cpu['losses'][0]:.7f}; errors {c_errs}")
+
+    launches = {"sweeps": dict(kernels.LAUNCHES),
+                "rays": {k: dict(v) for k, v in rays.LAUNCHES.items()}}
+    seconds = time.perf_counter() - t_phase
+    log(f"  phase [19]: {seconds:.1f} s ({card}); kernel launches on this path: {launches} "
+        "(no kernel lies on it)")
+    if any(kernels.LAUNCHES.values()) or any(
+            v for per_axis in rays.LAUNCHES.values() for v in per_axis.values()):
+        raise AssertionError(f"a hot-path kernel launched on the training path: {launches}")
+    return {"losses": a["losses"], "step_ms": step_ms, "peak_gib": a["peak_gib"],
+            "bf16_share": tflops / BF16_DENSE_TFLOPS, "idle_share": idle, "b": b_errs,
+            "c": c_errs, "seconds": seconds}
 
 if __name__ == "__main__":
     sys.exit(main())

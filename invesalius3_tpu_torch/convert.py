@@ -6,7 +6,8 @@ project, and the 3D viewer's raycasting presets.
 Most of the system runs no model; there its "weights" are its inputs and
 the state one stage hands the next.  This module moves that state across,
 so each port stage can be fed the JAX stage's exact input, and carries the
-segmentation models' Flax variables over as the port's state dicts.  It never imports jax: it
+segmentation models' Flax variables and optax's Adam state over as the
+port's state dicts.  It never imports jax: it
 reads JAX objects through their attributes, and anything array-like goes
 through ``np.asarray``.  Every bridge puts its tensors on the card unless
 the caller passes ``device="cpu"``; the weight carriers return host tensors,
@@ -249,11 +250,24 @@ def _conv(state, name, p, axes) -> None:
 
 
 def _norm(state, name, p, stats) -> None:
-    """A Flax batch norm's scale, bias, mean and var under torch's names."""
+    """A Flax batch norm's scale, bias, mean and var under torch's names
+    (the running statistics only where ``stats`` is given)."""
     state[f"{name}.weight"] = _t(p["scale"])
     state[f"{name}.bias"] = _t(p["bias"])
-    state[f"{name}.running_mean"] = _t(stats["mean"])
-    state[f"{name}.running_var"] = _t(stats["var"])
+    if stats is not None:
+        state[f"{name}.running_mean"] = _t(stats["mean"])
+        state[f"{name}.running_var"] = _t(stats["var"])
+
+
+def _stats(variables, *path):
+    """The ``batch_stats`` entry at ``path``, None for a parameter tree
+    alone (variables without ``batch_stats``)."""
+    node = variables.get("batch_stats")
+    for key in path:
+        if node is None:
+            return None
+        node = node[key]
+    return node
 
 
 _UNET3D_ALIAS = {"encoder1": "enc1", "encoder2": "enc2", "encoder3": "enc3",
@@ -266,15 +280,16 @@ def unet3d_from_jax(variables) -> dict:
     decoders' inner layers ``dec4_*``) of the JAX ``Unet3D``'s variables.
     Flax kernels (kd, kh, kw, in, out) become Conv3d (out, in, kd, kh, kw);
     ``transpose_kernel`` ConvTranspose kernels (kd, kh, kw, out, in) become
-    ConvTranspose3d (in, out, kd, kh, kw)."""
-    params, stats = variables["params"], variables["batch_stats"]
+    ConvTranspose3d (in, out, kd, kh, kw).  Without ``batch_stats`` it
+    carries the parameters alone."""
+    params = variables["params"]
     axes = (4, 3, 0, 1, 2)
     state = {}
     for block, alias in _UNET3D_ALIAS.items():
         for i in (1, 2):
             _conv(state, f"{block}.{alias}_conv{i}", params[block][f"conv{i}"], axes)
             _norm(state, f"{block}.{alias}_norm{i}", params[block][f"norm{i}"],
-                  stats[block][f"norm{i}"])
+                  _stats(variables, block, f"norm{i}"))
     for name in ("upconv4", "upconv3", "upconv2", "upconv1", "conv"):
         _conv(state, name, params[name], axes)
     return state
@@ -284,11 +299,11 @@ def unet2d_from_jax(variables) -> dict:
     """The port's ``Unet2D`` state dict of the JAX ``Unet2D``'s variables:
     kernels (kh, kw, in, out) -> (out, in, kh, kw), transpose kernels
     (kh, kw, out, in) -> (in, out, kh, kw)."""
-    params, stats = variables["params"], variables["batch_stats"]
+    params = variables["params"]
     state = {}
     for b in ("enc1", "enc2", "enc3", "dec2", "dec1"):
         _conv(state, f"{b}_conv", params[f"{b}_conv"], (3, 2, 0, 1))
-        _norm(state, f"{b}_norm", params[f"{b}_norm"], stats[f"{b}_norm"])
+        _norm(state, f"{b}_norm", params[f"{b}_norm"], _stats(variables, f"{b}_norm"))
     for name in ("upconv2", "upconv1", "conv"):
         _conv(state, name, params[name], (3, 2, 0, 1))
     return state
@@ -298,7 +313,7 @@ def fastsurfer_from_jax(variables) -> dict:
     """The port's ``FastSurferCNN`` state dict of the JAX model's variables:
     ``<block>.conv{i}`` (bias-free), ``<block>.bn{i}``, ``<block>.prelu{i}``
     (a slope of shape (1,)) and ``classifier``."""
-    params, stats = variables["params"], variables["batch_stats"]
+    params = variables["params"]
     state = {}
     _conv(state, "classifier", params["classifier"], (3, 2, 0, 1))
     for block, layers in params.items():
@@ -311,5 +326,24 @@ def fastsurfer_from_jax(variables) -> dict:
             elif layer.startswith("prelu"):
                 state[f"{name}.weight"] = _t(p["negative_slope"]).reshape(1)
             else:
-                _norm(state, name, p, stats[block][layer])
+                _norm(state, name, p, _stats(variables, block, layer))
     return state
+
+
+def adam_state_from_jax(opt_state, model) -> dict:
+    """The port's Adam state (``models/train.Adam.load_state_dict``) of
+    ``optax.adam``'s state for the parameters of ``model``'s JAX
+    counterpart: ``count``, and the first and second moments ``mu`` and
+    ``nu`` carried as the parameters are (a ``Unet3D``, ``Unet2D`` or
+    ``FastSurferCNN``) and listed in ``model.parameters()`` order."""
+    from invesalius3_tpu_torch.models.fastsurfer import FastSurferCNN
+    from invesalius3_tpu_torch.models.unet2d import Unet2D
+    from invesalius3_tpu_torch.models.unet3d import Unet3D
+
+    adam = opt_state[0]  # ScaleByAdamState, then scale_by_learning_rate's empty state
+    carry = {Unet3D: unet3d_from_jax, Unet2D: unet2d_from_jax,
+             FastSurferCNN: fastsurfer_from_jax}[type(model)]
+    names = [name for name, _ in model.named_parameters()]
+    mu, nu = carry({"params": adam.mu}), carry({"params": adam.nu})
+    return {"count": int(np.asarray(adam.count)), "mu": [mu[k] for k in names],
+            "nu": [nu[k] for k in names]}

@@ -22,7 +22,10 @@ Activations are NCHW; the input is cast to ``dtype`` (bfloat16 by default)
 before ``enc1.bn0``, convolutions compute in ``dtype``, batch norms, PReLU,
 the competitions and the classifier in float32 (``models/layers.py``).
 The pooling indices take the first maximum of each 2x2 window in (dy, dx)
-order, as ``jnp.argmax`` does.
+order, as ``jnp.argmax`` does.  The network starts in eval mode (the Flax
+flag's default); ``train()`` is the JAX model's ``train=True``.  Gradients
+pass as JAX's do: a tied 2x2 maximum and a tied maxout competition split
+the cotangent evenly, and unpooling passes it through its one-hot.
 """
 
 from __future__ import annotations
@@ -257,6 +260,7 @@ class FastSurferCNN(nn.Module):
         for name in ("enc2", "enc3", "enc4", "bottleneck", "dec4", "dec3", "dec2", "dec1"):
             setattr(self, name, CompetitiveDenseBlock(f, f, kernel, False, dtype))
         self.classifier = nn.Conv2d(f, num_classes, 1)
+        self.eval()  # Flax's default, train=False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         with fp32_convs(x.device):

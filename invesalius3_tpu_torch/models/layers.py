@@ -7,7 +7,8 @@ segmenters) with float32 parameters, and everything else in float32:
   convolve to a ``dtype`` result, then add the bias cast to ``dtype`` (two
   roundings in bfloat16; cuDNN's fused bias would round once);
 - ``nn.BatchNorm(dtype=float32)`` promotes its input and returns float32:
-  ``(x - mean) * (rsqrt(var + eps) * scale) + bias``;
+  ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, with the running
+  statistics in eval mode and the batch's in train mode (``BatchNorm``);
 - a layer without a dtype (the 1x1 heads) runs in float32.
 
 ``torch.autocast`` casts at other points, so the modules call ``conv`` with
@@ -27,6 +28,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from invesalius3_tpu_torch.parallel import collectives
+
 _CONV_FNS = {
     nn.Conv2d: F.conv2d, nn.Conv3d: F.conv3d,
     nn.ConvTranspose2d: F.conv_transpose2d, nn.ConvTranspose3d: F.conv_transpose3d,
@@ -44,21 +47,74 @@ def conv(layer: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return y
 
 
+MOMENTUM = 0.9  # Flax's: running = 0.9 * running + 0.1 * batch
+
+
+class _GroupSum(torch.autograd.Function):
+    """A sum over the ranks of a process group.  Every rank's loss depends
+    on every rank's input through the sum, so the backward sums the
+    cotangents over the group too."""
+
+    @staticmethod
+    def forward(ctx, t: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        return collectives.all_reduce(t, group)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return collectives.all_reduce(grad, ctx.group), None
+
+
 class BatchNorm(nn.modules.batchnorm._BatchNorm):
-    """Eval-mode batch norm as Flax's ``nn.BatchNorm(dtype=float32)``
+    """Batch norm as Flax's ``nn.BatchNorm(dtype=float32, momentum=0.9)``
     computes it.  Its keys are torch's (``weight``, ``bias``,
     ``running_mean``, ``running_var``, ``num_batches_tracked``), and a state
     dict without ``num_batches_tracked`` loads strictly, as into
-    ``nn.BatchNorm*d``."""
+    ``nn.BatchNorm*d``.
+
+    In eval mode it normalises with the running statistics (Flax's
+    ``use_running_average=True``).  In train mode it normalises with the
+    batch's: float32 sums over every axis but the channel, ``mean = E[x]``
+    and the fast variance ``max(E[x^2] - E[x]^2, 0)`` (Flax's
+    ``use_fast_variance`` and ``force_float32_reductions``), and it updates
+    the running statistics in place with Flax's momentum (``MOMENTUM``; the
+    biased variance; torch's ``momentum`` attribute is not read).  With a
+    process ``group`` set, the sums, and in the backward their cotangents,
+    cross every rank, so each rank normalises with the global batch's
+    statistics, as ``jit`` does over a sharded batch axis."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__(num_features, eps)
+        self.group = None
 
     def _check_input_dim(self, x: torch.Tensor) -> None:
         pass
 
+    def _batch_stats(self, x: torch.Tensor):
+        """(mean, var) of ``x`` per channel, over the group's ranks when it
+        has one."""
+        xf = x.to(torch.float32)
+        dims = [0] + list(range(2, x.dim()))
+        count = xf.new_full((1,), x.numel() // x.shape[1])
+        sums = torch.cat([xf.sum(dims), (xf * xf).sum(dims), count])
+        if self.group is not None:
+            sums = _GroupSum.apply(sums, self.group)
+        c = x.shape[1]
+        mean = sums[:c] / sums[-1]
+        return mean, torch.clamp_min(sums[c:2 * c] / sums[-1] - mean * mean, 0.0)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = (1, -1) + (1,) * (x.dim() - 2)
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return ((x.to(torch.float32) - self.running_mean.view(shape)) * mul.view(shape)
-                + self.bias.view(shape))
+        if self.training:
+            mean, var = self._batch_stats(x)
+            with torch.no_grad():
+                self.running_mean.copy_(MOMENTUM * self.running_mean + (1 - MOMENTUM) * mean)
+                self.running_var.copy_(MOMENTUM * self.running_var + (1 - MOMENTUM) * var)
+                self.num_batches_tracked.add_(1)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x.to(torch.float32) - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
 
 
 class PReLU(nn.PReLU):

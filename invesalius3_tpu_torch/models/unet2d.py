@@ -10,7 +10,9 @@ eager or read out of a TorchScript archive (models/torch_convert.py), loads
 with ``load_state_dict(strict=True)``.
 
 Activations are NCHW; convolutions compute in ``dtype`` (bfloat16 by
-default) with the JAX model's cast points (``models/layers.py``).
+default) with the JAX model's cast points (``models/layers.py``).  The
+model starts in eval mode (the Flax flag's default); ``train()`` is the
+JAX model's ``train=True``.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ class Unet2D(nn.Module):
         self.upconv2 = nn.ConvTranspose2d(f * 4, f * 2, 2, 2)
         self.upconv1 = nn.ConvTranspose2d(f * 2, f, 2, 2)
         self.conv = nn.Conv2d(f, out_channels, 1)
+        self.eval()  # Flax's default, train=False
 
     def _block(self, x: torch.Tensor, name: str) -> torch.Tensor:
         x = conv(getattr(self, f"{name}_conv"), x, self.dtype)

@@ -13,7 +13,9 @@ and all four decoders name their inner layers ``dec4_*`` (a quirk of the
 reference).
 
 Activations are NCDHW; convolutions compute in ``dtype`` (bfloat16 in the
-segmenters) with the JAX model's cast points (``models/layers.py``).
+segmenters) with the JAX model's cast points (``models/layers.py``).  A
+model starts in eval mode, as the Flax model's ``train`` flag defaults to
+False; ``model.train()`` is that flag (``models/train.py`` steps it).
 """
 
 from __future__ import annotations
@@ -64,10 +66,13 @@ class Unet3D(nn.Module):
             setattr(self, f"upconv{i}", nn.ConvTranspose3d(feats * 2, feats, 4, 2, 1))
             setattr(self, f"decoder{i}", ConvBlock(feats * 2, feats, "dec4", dtype))
         self.conv = nn.Conv3d(f, out_channels, 1)
+        self.eval()  # Flax's default, train=False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (N, C, D, H, W) float32 -> sigmoid probabilities (N, out, D, H,
-        W) float32."""
+        W) float32.  In train mode the batch norms normalise with the
+        batch's statistics and update their running ones (the JAX model's
+        ``train=True``)."""
         with fp32_convs(x.device):
             skips = []
             y = x

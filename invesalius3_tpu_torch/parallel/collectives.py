@@ -18,7 +18,9 @@ lists the shard list always used.
   of host scalars and arrays and the all-gather of small host arrays,
   over the mesh's gloo ``host_group``;
 - ``allgather_rows``: tensors of any length along the first axis from
-  every process, to every process.
+  every process, to every process;
+- ``all_reduce``: a tensor summed over a process group (the batch norms'
+  statistics and the gradients of a data-parallel training step).
 
 A tensor on the card goes over NCCL when the group is NCCL.  NCCL refuses
 two ranks of one communicator on one card, so ranks that share a card
@@ -166,6 +168,19 @@ def exchange_planes(mesh, ranks: List[int], lo: List[Optional[torch.Tensor]],
                 sends.append((ranks[nb], tag(mesh, PLANE, s, nb), plane_in))
                 recvs.append((ranks[nb], tag(mesh, PLANE, nb, s), dst))
     return halo, post(mesh, sends, recvs, reuse=True)
+
+
+def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` summed elementwise over the processes of ``group``, as a new
+    tensor on ``t``'s device.  A card tensor in a gloo group crosses
+    through a pinned host buffer."""
+    if t.device.type == "cuda" and dist.get_backend(group) == "gloo":
+        out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        out.copy_(t)
+    else:
+        out = t.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, group=group)
+    return out.to(t.device)
 
 
 def reduce_host(mesh, values, op: str) -> np.ndarray:
