@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from invesalius3_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from invesalius3_tpu_torch.models.layers import init_state, load
 from invesalius3_tpu_torch.models.unet3d import SIZE, Unet3D
+from invesalius3_tpu_torch.utils import logging as ilog
 
 
 class WeightsUnavailableError(RuntimeError):
@@ -194,23 +195,38 @@ class BrainSegmenter:
 
     def segment(self, image, probability_threshold: float = 0.5,
                 batch_size: int = 8, progress_cb=None) -> Tuple[np.ndarray, np.ndarray]:
-        """Returns (probability (Z, Y, X) float32, mask uint8 0/255)."""
+        """Returns (probability (Z, Y, X) float32, mask uint8 0/255).
+        Traced (``utils.logging.span``), it is the span ``segment``; each
+        batch is ``segment.batch`` with ``segment.gather``,
+        ``segment.model`` and ``segment.scatter`` inside, and the copy to
+        the host ``segment.host_result``."""
         shape = tuple(int(s) for s in np.shape(image))
-        norm = self.normalized(image)
-        padded_shape = tuple(int(s) for s in norm.shape)
+        with ilog.span("segment", shape=shape, batch=batch_size) as root:
+            norm = self.normalized(image)
+            padded_shape = tuple(int(s) for s in norm.shape)
 
-        origins_list = patch_grid(padded_shape, self.patch_size, self.overlap)
-        origins = torch.tensor(origins_list, dtype=torch.int64, device=self.device)
-        prob = torch.zeros(padded_shape, dtype=torch.float32, device=self.device)
-        n = len(origins_list)
-        for i in range(0, n, batch_size):
-            chunk = origins_list[i: i + batch_size]
-            probs = self.apply(gather_patches(norm, origins[i: i + len(chunk)],
-                                              self.patch_size))
-            scatter_patches(prob, probs, chunk)
-            if progress_cb is not None:
-                progress_cb(min(1.0, (i + len(chunk)) / n))
-        return _host_result(prob[: shape[0], : shape[1], : shape[2]], probability_threshold)
+            origins_list = patch_grid(padded_shape, self.patch_size, self.overlap)
+            origins = torch.tensor(origins_list, dtype=torch.int64, device=self.device)
+            prob = torch.zeros(padded_shape, dtype=torch.float32, device=self.device)
+            n = len(origins_list)
+            root.set(patches=n)
+            for i in range(0, n, batch_size):
+                chunk = origins_list[i: i + batch_size]
+                with ilog.span("segment.batch", index=i // batch_size):
+                    with ilog.span("segment.gather"):
+                        patches = gather_patches(norm, origins[i: i + len(chunk)],
+                                                 self.patch_size)
+                    with ilog.span("segment.model"):
+                        probs = self.apply(patches)
+                    with ilog.span("segment.scatter"):
+                        scatter_patches(prob, probs, chunk)
+                if progress_cb is not None:
+                    progress_cb(min(1.0, (i + len(chunk)) / n))
+            with ilog.span("segment.host_result") as host:
+                out = _host_result(prob[: shape[0], : shape[1], : shape[2]],
+                                   probability_threshold)
+                host.set(bytes=sum(a.nbytes for a in out))
+            return out
 
 
 # ---------------------------------------------------------------------------

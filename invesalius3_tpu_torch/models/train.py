@@ -28,6 +28,7 @@ import torch.nn as nn
 
 from invesalius3_tpu_torch.models.layers import BatchNorm, fp32_convs
 from invesalius3_tpu_torch.parallel import collectives
+from invesalius3_tpu_torch.utils import logging as ilog
 
 B1, B2, EPS, EPS_ROOT = 0.9, 0.999, 1e-8, 0.0  # optax.adam's defaults
 
@@ -118,19 +119,21 @@ def train_step(model: nn.Module, opt: Adam, x: torch.Tensor, y: torch.Tensor,
     loss of the global batch (0-d float32, detached); leaves the parameters
     stepped, the batch norms' running statistics updated, each parameter's
     ``.grad`` the global batch's gradient, and the model in its former
-    mode.  With ``group`` every rank must hold the same number of rows."""
-    world = 1 if group is None else dist.get_world_size(group)
-    opt.zero_grad()
-    with _training(model, group):
-        loss = bce_loss(model(x), y)
-        with fp32_convs(x.device):  # the backward's float32 convolutions too
-            (loss if world == 1 else loss / world).backward()
-    loss = loss.detach()
-    if world > 1:
-        grads = [p.grad for p in opt.params]
-        flat = collectives.all_reduce(torch.cat([g.reshape(-1) for g in grads]), group)
-        for g, summed in zip(grads, flat.split([g.numel() for g in grads])):
-            g.copy_(summed.view_as(g))
-        loss = collectives.all_reduce(loss, group) / world
-    opt.step()
-    return loss
+    mode.  With ``group`` every rank must hold the same number of rows.
+    Traced (``utils.logging.span``), it is the span ``train.step``."""
+    with ilog.span("train.step", rows=x.shape[0]):
+        world = 1 if group is None else dist.get_world_size(group)
+        opt.zero_grad()
+        with _training(model, group):
+            loss = bce_loss(model(x), y)
+            with fp32_convs(x.device):  # the backward's float32 convolutions too
+                (loss if world == 1 else loss / world).backward()
+        loss = loss.detach()
+        if world > 1:
+            grads = [p.grad for p in opt.params]
+            flat = collectives.all_reduce(torch.cat([g.reshape(-1) for g in grads]), group)
+            for g, summed in zip(grads, flat.split([g.numel() for g in grads])):
+                g.copy_(summed.view_as(g))
+            loss = collectives.all_reduce(loss, group) / world
+        opt.step()
+        return loss

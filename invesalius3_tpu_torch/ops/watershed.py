@@ -23,6 +23,7 @@ from invesalius3_tpu_torch.ops.kernels import (DIST_BITS, DIST_MAX, INF_RANK,
 from invesalius3_tpu_torch.ops.morphology import (morphological_gradient,
                                                   pad_const, shift_nd)
 from invesalius3_tpu_torch.ops.windowing import get_lut_value
+from invesalius3_tpu_torch.utils import logging as ilog
 
 Sweep = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, int],
                  Tuple[torch.Tensor, torch.Tensor]]
@@ -113,21 +114,23 @@ def watershed(
     side, else 0 (the plain fixpoint).  ``sweep`` replaces the axis sweep
     (``ops.kernels.watershed_sweep_ref`` runs the plain version on a card);
     ``rounds``, if given, receives ``(level shape, rounds)`` per multigrid
-    refine, coarse to fine.
+    refine, coarse to fine.  Traced (``utils.logging.span``), it is the
+    span ``watershed``.
     """
-    if use_ww_wl:
-        img = get_lut_value(image, ww, wl).to(torch.int32)
-    else:
-        # in the input dtype first, as the JAX package does (int16 may wrap)
-        img = (image - torch.min(image)).to(torch.int32)
-    if algorithm == "Watershed":
-        img = morphological_gradient(img, mg_size)
-    if multigrid_levels is None:
-        multigrid_levels = 2 if min(image.shape) >= 192 else 0
-    if multigrid_levels > 0:
-        return watershed_ift_multigrid(img, markers, connectivity,
-                                       multigrid_levels, sweep, rounds)
-    return watershed_ift(img, markers, connectivity, sweep)
+    with ilog.span("watershed", shape=image.shape):
+        if use_ww_wl:
+            img = get_lut_value(image, ww, wl).to(torch.int32)
+        else:
+            # in the input dtype first, as the JAX package does (int16 may wrap)
+            img = (image - torch.min(image)).to(torch.int32)
+        if algorithm == "Watershed":
+            img = morphological_gradient(img, mg_size)
+        if multigrid_levels is None:
+            multigrid_levels = 2 if min(image.shape) >= 192 else 0
+        if multigrid_levels > 0:
+            return watershed_ift_multigrid(img, markers, connectivity,
+                                           multigrid_levels, sweep, rounds)
+        return watershed_ift(img, markers, connectivity, sweep)
 
 
 def _refine_round(rank, lab, f, lab0, frozen, connectivity: int,
@@ -149,7 +152,9 @@ def _watershed_refine(f, lab0, rank_init, lab_init, connectivity: int,
     """Relaxation from a valid upper bound until ``quiet_rounds``
     consecutive rounds change no label.  The host reads batch i's flag only
     after batch i + 1 is queued (one extra batch after quiescence), exactly
-    the JAX package's loop, so the round counts agree."""
+    the JAX package's loop, so the round counts agree.  Traced, a level is
+    the span ``watershed.level`` and each flag read the span
+    ``watershed.flag_read``, counted as ``watershed.flag_reads``."""
     frozen = lab0 != 0
     rank = torch.where(frozen, 0, rank_init).contiguous()
     lab = torch.where(frozen, lab0, lab_init).contiguous()
@@ -157,19 +162,24 @@ def _watershed_refine(f, lab0, rank_init, lab_init, connectivity: int,
     quiet_batches = max(1, -(-quiet_rounds // inner_rounds))
     n_rounds = 0
     pending = None
-    for _ in range(0, max_rounds, inner_rounds):
-        changed = _refine_round(rank, lab, f, lab0, frozen, connectivity,
-                                inner_rounds, sweep)
-        n_rounds += inner_rounds
-        prev, pending = pending, changed
-        if prev is None:
-            continue
-        if bool(prev):
-            quiet = 0
-        else:
-            quiet += 1
-            if quiet >= quiet_batches:
-                break
+    with ilog.span("watershed.level", shape=f.shape) as level:
+        for _ in range(0, max_rounds, inner_rounds):
+            changed = _refine_round(rank, lab, f, lab0, frozen, connectivity,
+                                    inner_rounds, sweep)
+            n_rounds += inner_rounds
+            prev, pending = pending, changed
+            if prev is None:
+                continue
+            with ilog.span("watershed.flag_read"):
+                moved = bool(prev)
+            ilog.count("watershed.flag_reads")
+            if moved:
+                quiet = 0
+            else:
+                quiet += 1
+                if quiet >= quiet_batches:
+                    break
+        level.set(rounds=n_rounds)
     if rounds is not None:
         rounds.append((tuple(int(s) for s in f.shape), n_rounds))
     return rank, lab

@@ -66,8 +66,8 @@ def next_copy_name(original_name: str, names_list: Sequence[str]) -> str:
 
 def timing(fn: Callable) -> Callable:
     """Wall-clock a call, stashing the duration on ``wrapper.last_seconds``
-    (reference utils.py:392).  It does not wait for the card: time device
-    work with ``utils.logging.span`` and its ``sync_result``."""
+    (reference utils.py:392).  It does not wait for the card: see device
+    work in a ``utils.logging.trace``."""
 
     @functools.wraps(fn)
     def wrapper(*args, **kw):

@@ -3,22 +3,28 @@ invesalius3_tpu/utils/logging.py; reference invesalius/enhanced_logging.py:
 console / rotating-file / in-memory ring handlers, per-component filtering,
 export; and the ``[PERF]`` stage timers of surface_process.py:186-408).
 
-``span`` waits for the card when handed the tensors a stage produced, so it
-times the work and not its launch; ``trace`` wraps ``torch.profiler`` and
-writes a Chrome trace.
+``span`` and ``count`` trace the program's stages while a ``torch.profiler``
+records (``trace`` wraps one and writes its Chrome trace): each span is a
+``record_function`` in that trace, on the kernels' clock, and an entry in a
+bounded ring that ``perf_report`` reads.  With no profiler recording they
+do nothing.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import itertools
 import json
 import logging
 import logging.handlers
+import threading
 import time
 from collections import deque
 from pathlib import Path
-from typing import Deque, Optional
+from typing import Deque, Dict, Optional
+
+import torch
 
 LOGGER_NAME = "invesalius3_tpu_torch"
 
@@ -118,47 +124,97 @@ def query_log(level: Optional[str] = None, component: Optional[str] = None,
 # perf spans
 # ---------------------------------------------------------------------------
 
-_spans: list = []
+RING_SPANS = 8192  # the ring keeps the last spans closed; a 256^3 segmentation closes 502
+_ring: Deque[dict] = deque(maxlen=RING_SPANS)
+_ids = itertools.count(1)
+_open = threading.local()  # this thread's stack of open spans, outermost first
 
 
-def _synchronize(result) -> None:
-    """Wait for the card on every CUDA device holding a tensor in
-    ``result`` (a tensor, or a list, tuple or dict of them); CPU tensors
-    and other values need nothing."""
-    import torch
+class _Untraced:
+    """What ``span`` returns while no profiler records: it does nothing."""
 
-    stack, devices = [result], set()
-    while stack:
-        x = stack.pop()
-        if isinstance(x, torch.Tensor):
-            if x.is_cuda:
-                devices.add(x.device)
-        elif isinstance(x, dict):
-            stack.extend(x.values())
-        elif isinstance(x, (list, tuple)):
-            stack.extend(x)
-    for d in devices:
-        torch.cuda.synchronize(d)
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+    def set(self, **attrs) -> None:
+        pass
 
 
-@contextlib.contextmanager
-def span(name: str, sync_result=None):
-    """``[PERF]`` stage timer.  Pass the stage's tensors as ``sync_result``
-    to wait for the card before the clock stops (else it times the launch
-    only)."""
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        if sync_result is not None:
-            _synchronize(sync_result)
-        dt = time.perf_counter() - t0
-        _spans.append({"name": name, "seconds": dt, "ts": time.time()})
-        get_logger("perf").info("[PERF] %s: %.4fs", name, dt)
+_UNTRACED = _Untraced()
+
+
+class Span:
+    """One traced span: a ``record_function("invesalius." + name)`` in the
+    profiler's trace, and an entry in the ring when it closes."""
+
+    __slots__ = ("name", "attrs", "id", "parent", "root", "counts", "start_ns", "_rf")
+
+    def __init__(self, name: str, attrs: dict):
+        self.name, self.attrs = name, attrs
+        self.id = next(_ids)
+        self.counts: Dict[str, int] = {}
+
+    def set(self, **attrs) -> None:
+        """Add attributes known only inside the span."""
+        self.attrs.update(attrs)
+
+    def __enter__(self) -> "Span":
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+        self.parent = stack[-1].id if stack else None
+        self.root = stack[0].id if stack else self.id
+        stack.append(self)
+        self._rf = torch.profiler.record_function("invesalius." + self.name)
+        self._rf.__enter__()
+        self.start_ns = time.time_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        end_ns = time.time_ns()
+        self._rf.__exit__(*exc)
+        _open.stack.pop()
+        entry = {"name": self.name, "start_ns": self.start_ns, "end_ns": end_ns,
+                 "id": self.id, "parent": self.parent, "root": self.root,
+                 "attrs": self.attrs}
+        if self.parent is None:
+            entry["counts"] = self.counts
+            get_logger("perf").info("[PERF] %s: %.4fs", self.name,
+                                    (end_ns - self.start_ns) / 1e9)
+        _ring.append(entry)
+        return False
+
+
+def span(name: str, **attrs):
+    """A stage of the program, traced while a profiler records (``trace``,
+    or the benchmark's traced run).  The outermost open span is a root: one
+    user action, whose id its spans share and whose ``[PERF]`` line is
+    logged.  Untraced it checks that flag and does nothing: no clock, no
+    ``record_function``, no entry.  A span reads nothing from the card and
+    waits for nothing, so it times the host's part of a stage."""
+    if not torch.autograd._profiler_enabled():
+        return _UNTRACED
+    return Span(name, attrs)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the open root span's ``counts[name]`` (kept in the
+    root's ring entry) while a profiler records."""
+    if not torch.autograd._profiler_enabled():
+        return
+    stack = getattr(_open, "stack", None)
+    if stack:
+        counts = stack[0].counts
+        counts[name] = counts.get(name, 0) + n
 
 
 def timing(fn):
-    """Decorator timing a function as a span (reference utils.py:392)."""
+    """Decorator tracing a function as a span (reference utils.py:392)."""
 
     @functools.wraps(fn)
     def wrapper(*a, **kw):
@@ -169,20 +225,23 @@ def timing(fn):
 
 
 def perf_report() -> list:
-    return list(_spans)
+    """The ring's entries, oldest first: ``name``, ``start_ns`` and
+    ``end_ns`` (``time.time_ns()``, the clock the profiler's Chrome trace
+    is offset from), ``id``, ``parent`` (None for a root), ``root``,
+    ``attrs``, and a root's ``counts``."""
+    return list(_ring)
 
 
 def export_perf_report(path) -> None:
-    Path(path).write_text(json.dumps(_spans, indent=2))
+    Path(path).write_text(json.dumps(perf_report(), indent=2, default=str))
 
 
 @contextlib.contextmanager
 def trace(log_dir=None):
     """``torch.profiler`` around a region (the CPU, and the card when there
     is one); its Chrome trace is written into ``log_dir`` (the user log
-    directory's ``trace/`` by default)."""
-    import torch
-
+    directory's ``trace/`` by default).  Spans and counts are traced inside
+    it."""
     from invesalius3_tpu_torch.utils.paths import user_log_dir
 
     acts = [torch.profiler.ProfilerActivity.CPU]
