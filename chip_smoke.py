@@ -320,7 +320,7 @@ from invesalius3_tpu_torch.net import download
 from invesalius3_tpu_torch.ops import (connected, floodfill, kernels, mesh, morphology,
                                        rasterize, raycast, render_mesh, reslice, resize,
                                        transforms, watershed)
-from invesalius3_tpu_torch.ops import marching
+from invesalius3_tpu_torch.ops import conv_wgrad, marching
 from invesalius3_tpu_torch.ops import projection_kernels as rays
 from invesalius3_tpu_torch.ops import threshold as thr_ops
 from invesalius3_tpu_torch.parallel import collectives, distributed, sharded_ops
@@ -336,6 +336,8 @@ REPLACES = {  # sweep axis -> the TPU kernel it replaces
     2: "invesalius3_tpu/ops/pallas_kernels.py:289",  # y kernel on swapped axes
 }
 RAY_SOURCE = "invesalius3_tpu_torch/csrc/ray_projections.cu"
+# replaces no TPU kernel (the JAX package leaves the gradient to XLA)
+CONV_WGRAD_SOURCE = "invesalius3_tpu_torch/csrc/conv_wgrad.cu"
 RAY_REPLACES = {"lmip": "invesalius3_tpu/ops/pallas_kernels.py:81",   # lmip_axis0
                 "mida": "invesalius3_tpu/ops/pallas_kernels.py:147"}  # mida_axis0
 RAY_FNS = {"lmip": (rays.lmip_rays, rays.lmip_ref),
@@ -566,7 +568,7 @@ def main() -> int:
         procs = cross_process_phase(dev, Path(d), sharded)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as d:
-        training_phase(dev, Path(d))
+        trained = training_phase(dev, Path(d))
 
     # the sweeps' launches on the main paths: the single-device flow of
     # phase [4], the sharded flow of phase [17] and its ranks' in phase
@@ -584,6 +586,7 @@ def main() -> int:
          "replaces": RAY_REPLACES[k], "launches": ray_launches[k][axis],
          "max_abs_err": errs[(k, axis)], **ray_times[(k, axis)]}
         for k in RAY_FNS for axis in (0, 1, 2)]
+    entries += conv_wgrad_entries(trained)
     log(f"phases [1]-[19]: {time.perf_counter() - t_run:.1f} s ({smi})")
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {
@@ -733,10 +736,11 @@ def _profiled(dev, fn):
         fn()
         wall = time.perf_counter() - t0
     # the device's own events (kernels and copies): a host op's row, an
-    # aten op or an autograd node, repeats its kernels' time
+    # aten op or an autograd node, repeats its kernels' time, and so does
+    # the program's span (``invesalius.*``) on the device's timeline
     rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
             if e.device_type != torch.autograd.DeviceType.CPU and e.device_time_total > 0
-            and "Activity Buffer" not in e.key]
+            and "Activity Buffer" not in e.key and not e.key.startswith("invesalius.")]
     return wall, sum(ms for _, ms, _ in rows) / 1e3, rows
 
 
@@ -5042,6 +5046,124 @@ def profile_train_step(dev, model, opt, x, y) -> float:
     return 1 - busy / wall
 
 
+@contextlib.contextmanager
+def cudnn_wgrad():
+    """Every convolution's weight gradient from cuDNN, as before
+    ``ops/conv_wgrad.py`` (phase 19's attribution)."""
+    routed = mlayers.wgrad_routed
+    mlayers.wgrad_routed = lambda layer, dtype: False
+    try:
+        yield
+    finally:
+        mlayers.wgrad_routed = routed
+
+
+def direct_kernel_origin(dev, p: int = TRAIN_P, batch: int = TRAIN_BATCH, f: int = TRAIN_F):
+    """The convolutions whose weight gradient cuDNN computed with its
+    ``wgrad2d_grouped_direct_kernel`` in one bfloat16 training step with
+    every weight gradient on cuDNN: rows (the ``aten::convolution_backward``
+    input shapes, the kernel's device ms), from the profiler's record of the
+    op that launched it (``record_shapes=True``)."""
+    x, y = train_batch(p, batch, dev)
+    model = unet3d.Unet3D(init_features=f, dtype=torch.bfloat16)
+    model.load_state_dict(mlayers.init_state(model, torch.Generator().manual_seed(TRAIN_SEED)))
+    model.to(dev)
+    opt = train.adam(model.parameters())
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with cudnn_wgrad():
+        for _ in range(2):  # cuDNN's first calls
+            train.train_step(model, opt, x, y)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
+            train.train_step(model, opt, x, y)
+            torch.cuda.synchronize()
+    rows = []
+    for e in prof.events():
+        ms = sum(k.duration for k in e.kernels if "wgrad2d_grouped_direct" in k.name) / 1e3
+        if ms == 0:
+            continue
+        op = e
+        while op is not None and "convolution_backward" not in op.name:
+            op = op.cpu_parent
+        rows.append(((op or e).input_shapes, ms))
+    return rows
+
+
+def conv_wgrad_timing(dev, p: int = TRAIN_P, batch: int = TRAIN_BATCH, f: int = TRAIN_F,
+                      reps: int = 20) -> dict:
+    """Phase 19's weight-gradient kernel (``ops/conv_wgrad.py``) at the
+    training step's two single-channel convolutions on the card: the first
+    (1 -> f, 5^3, bfloat16) and the head (f -> 1, 1^3, float32).  Per
+    convolution the kernel's ms (``reps`` calls between one pair of CUDA
+    events) against its bound (the inputs' and the gradient's bytes over
+    the device memory's bandwidth), the plain version's ms,
+    ``torch.nn.grad.conv3d_weight``'s (cuDNN, TF32 off: a yardstick the
+    port never calls) and the kernel's distance from the plain version:
+    each element within 1e-6 of the sum of its terms' magnitudes (and a
+    bfloat16 unit in the last place), a float32 result within 1e-5 in norm;
+    then which convolution launched cuDNN's direct kernel before the
+    kernel took the weight gradients (``direct_kernel_origin``)."""
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+    out = {}
+    for name, c_in, c_out, k, dtype in (("enc1_conv1", 1, f, 5, torch.bfloat16),
+                                        ("conv", f, 1, 1, torch.float32)):
+        x = torch.rand(batch, c_in, p, p, p, device=dev, generator=gen).to(dtype)
+        dy = torch.randn(batch, c_out, p, p, p, device=dev, generator=gen).to(dtype)
+        before = conv_wgrad.LAUNCHES["conv_wgrad"]
+        got = conv_wgrad.conv_wgrad(x, dy, k).float()
+        want = conv_wgrad.conv_wgrad_ref(x, dy, k).float()
+        err = _norm_rel(got.double(), want.double())
+        # two float32 sums of one element in other orders: within 1e-6 of
+        # the sum of its terms' magnitudes (0.2% of a typical element
+        # here), and a bfloat16 result one unit in the last place more
+        room = 1e-6 * conv_wgrad.conv_wgrad_ref(x.abs(), dy.abs(), k).float()
+        if dtype == torch.bfloat16:
+            room += 2.0 ** -7 * want.abs()
+        worst = float(((got - want).abs() / room).max())
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            conv_wgrad.conv_wgrad(x, dy, k)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / reps
+        calls = conv_wgrad.LAUNCHES["conv_wgrad"] - before
+        plain_ms, _ = _event_ms(lambda: conv_wgrad.conv_wgrad_ref(x, dy, k), 2)
+        with mlayers.fp32_convs(dev):
+            library_ms, _ = _event_ms(lambda: torch.nn.grad.conv3d_weight(
+                x, (c_out, c_in, k, k, k), dy, padding=k // 2), 3)
+        nbytes = (x.numel() + dy.numel() + got.numel()) * x.element_size()
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound,
+                     "bound_by": "bytes", "rel_err": err, "worst_over_room": worst,
+                     "timing_calls": calls}
+        log(f"  conv_wgrad {name} ({c_in} -> {c_out}, {k}^3, {str(dtype)[6:]}, {batch} x {p}^3): "
+            f"kernel {ms:.4f} ms against its bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB at "
+            f"{HBM_BYTES_PER_S / 1e12} TB/s; share {bound / ms:.1%}); plain {plain_ms:.3f} ms; library_ms "
+            f"(conv3d_weight, TF32 off) {library_ms:.3f} ms; |kernel - plain| / |plain| "
+            f"{err:.2e}, worst element at {worst:.3f} of its room; {calls} calls")
+        if not worst <= 1 or (dtype == torch.float32 and not err <= 1e-5) or calls != reps + 1:
+            raise AssertionError(f"[19] conv_wgrad {name}: {worst} of the room, rel_err {err}, "
+                                 f"{calls} calls")
+    origin = direct_kernel_origin(dev, p, batch, f)
+    for shapes, ms in origin:
+        log(f"  before the kernel: cuDNN's wgrad2d_grouped_direct_kernel {ms:.3f} ms a step, "
+            f"launched by aten::convolution_backward of (grad_output, input, weight) "
+            f"{shapes[:3]}")
+    out["direct_kernel_origin"] = origin
+    return out
+
+
+def conv_wgrad_entries(trained: dict) -> list:
+    """The ``kernels`` line's rows of the weight-gradient kernel from
+    ``training_phase``'s result: its timing at each convolution, and its
+    launches on the phase's training path, one a step for each convolution
+    (the timing's own calls are ``timing_calls``)."""
+    return [{"name": f"conv_wgrad[{name}]", "route": "cuda", "source": CONV_WGRAD_SOURCE,
+             "replaces": None, "launches": trained["conv_wgrad_launches"][name], **row}
+            for name, row in trained["conv_wgrad"].items() if name != "direct_kernel_origin"]
+
+
 def training_phase(dev, tmp: Path, p: int = TRAIN_P, batch: int = TRAIN_BATCH,
                    steps: int = TRAIN_STEPS, f32_steps: int = TRAIN_F32_STEPS,
                    f: int = TRAIN_F, check=TRAIN_CHECK, world: int = TRAIN_WORLD) -> dict:
@@ -5056,8 +5178,10 @@ def training_phase(dev, tmp: Path, p: int = TRAIN_P, batch: int = TRAIN_BATCH,
     float32: each rank's record equals (a)'s within ``BF16_TOL`` and
     ``CARD_DP_TOL`` (``DP_TOL`` on the CPU).  (c) one float32 step at
     ``check`` (patch side, batch) on the card and on the CPU, equal within
-    ``CARD_TOL``.  No hot-path kernel
-    lies on this path (the counts must stay 0)."""
+    ``CARD_TOL``.  No sweep or ray kernel lies on this path (their counts
+    must stay 0); on the card the single-channel convolutions' weight
+    gradients launch ``ops/conv_wgrad.py``'s kernel, timed first
+    (``conv_wgrad_timing``), two launches a step."""
     import pickle
 
     card = "cpu"
@@ -5070,6 +5194,8 @@ def training_phase(dev, tmp: Path, p: int = TRAIN_P, batch: int = TRAIN_BATCH,
     t_phase = time.perf_counter()
     kernels.reset_launches()
     rays.reset_launches()
+    wgrad = conv_wgrad_timing(dev, p, batch, f) if dev.type == "cuda" else None
+    conv_wgrad.reset_launches()
 
     a, (model, opt, x, y) = train_run(dev, p, batch, steps, torch.bfloat16, f)
     if not all(np.isfinite(a["losses"])) or not a["losses"][-1] < a["losses"][0]:
@@ -5114,16 +5240,26 @@ def training_phase(dev, tmp: Path, p: int = TRAIN_P, batch: int = TRAIN_BATCH,
         f"CPU {c_cpu['losses'][0]:.7f}; errors {c_errs}")
 
     launches = {"sweeps": dict(kernels.LAUNCHES),
-                "rays": {k: dict(v) for k, v in rays.LAUNCHES.items()}}
+                "rays": {k: dict(v) for k, v in rays.LAUNCHES.items()},
+                "conv_wgrad": dict(conv_wgrad.LAUNCHES)}
     seconds = time.perf_counter() - t_phase
+    # one process's steps on the card: (a) steps + the profiled one + the
+    # float32 steps, and (c)'s one; two single-channel convolutions each
+    card_steps = steps + 1 + f32_steps + 1 if dev.type == "cuda" else 0
     log(f"  phase [19]: {seconds:.1f} s ({card}); kernel launches on this path: {launches} "
-        "(no kernel lies on it)")
+        f"(the weight-gradient kernel's: 2 a step on the card, {2 * card_steps} expected)")
     if any(kernels.LAUNCHES.values()) or any(
             v for per_axis in rays.LAUNCHES.values() for v in per_axis.values()):
-        raise AssertionError(f"a hot-path kernel launched on the training path: {launches}")
+        raise AssertionError(f"a sweep or ray kernel launched on the training path: {launches}")
+    if launches["conv_wgrad"] != {"conv_wgrad": 2 * card_steps, "k1": card_steps,
+                                  "k5": card_steps}:
+        raise AssertionError(f"[19] weight-gradient kernel launches {launches['conv_wgrad']}, "
+                             f"want {card_steps} for each of k 1 and 5")
     return {"losses": a["losses"], "step_ms": step_ms, "peak_gib": a["peak_gib"],
             "bf16_share": tflops / BF16_DENSE_TFLOPS, "idle_share": idle, "b": b_errs,
-            "c": c_errs, "seconds": seconds}
+            "c": c_errs, "seconds": seconds, "conv_wgrad": wgrad,
+            "conv_wgrad_launches": {"enc1_conv1": conv_wgrad.LAUNCHES["k5"],
+                                    "conv": conv_wgrad.LAUNCHES["k1"]}}
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -1,6 +1,6 @@
 """Build the port's native libraries from the repository's sources.
 
-Five shared libraries, each with a plain C interface loaded through ctypes:
+Six shared libraries, each with a plain C interface loaded through ctypes:
 
 - ``watershed_sweep``: ``csrc/watershed_sweep.cu``, compiled by ``nvcc`` for
   ``sm_90a`` (Hopper).  Only a CUDA tensor ever asks for it.
@@ -8,6 +8,8 @@ Five shared libraries, each with a plain C interface loaded through ctypes:
   min/max pass), the same way, with ``-fmad=false`` so that no product and
   sum is contracted into a fused multiply-add: the kernels then round as
   PyTorch's separate elementwise kernels do.
+- ``conv_wgrad``: ``csrc/conv_wgrad.cu``, the weight gradient of a 3D
+  convolution with one input or one output channel, the same way.
 - ``meshpack``: the host STL packer ``csrc/meshpack.cpp`` (the port's own
   copy of the JAX package's record packer), compiled by ``g++``.
 - ``decimate``: the host QEM edge-collapse decimator ``csrc/decimate.cpp``
@@ -87,6 +89,10 @@ LIBS: Dict[str, _Lib] = {
          "mida_rays": [P, P, I, I] + [I64] * 12 + [P, F, F, P],
          "slab_minmax": [P, I] + [I64] * 6 + [P, P],
          "ray_workspace_bytes": []}),
+    "conv_wgrad": _Lib(
+        _nvcc, NVCC_FLAGS, (_HERE / "csrc" / "conv_wgrad.cu",),
+        {"conv_wgrad_grid": [I, I],
+         "conv_wgrad": [P, P, P, P] + [I] * 9 + [P]}),
     "meshpack": _Lib(
         _gxx, GXX_FLAGS, (_HERE / "csrc" / "meshpack.cpp",),
         {"stl_pack_mt": [P, I64, P, I64, P, I]}),
@@ -150,6 +156,10 @@ def watershed_sweep_lib() -> ctypes.CDLL:
 
 def ray_projections_lib() -> ctypes.CDLL:
     return _load("ray_projections")
+
+
+def conv_wgrad_lib() -> ctypes.CDLL:
+    return _load("conv_wgrad")
 
 
 def meshpack_lib() -> ctypes.CDLL:

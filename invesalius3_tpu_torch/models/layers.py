@@ -15,6 +15,12 @@ segmenters) with float32 parameters, and everything else in float32:
 the dtype Flax uses.  Parameters stay float32 and are cast at use.  On the
 card, float32 convolutions run with TF32 off inside ``fp32_convs``, as the
 JAX reference computes them in float32.
+
+A 3D convolution with one input or one output channel (``wgrad_routed``)
+whose weight takes a gradient computes that gradient with the port's own
+kernel (``ops/conv_wgrad.py``) instead of cuDNN's: the same sum in float32,
+rounded once to the convolution's dtype.  Its forward is the same
+``conv3d`` call.
 """
 
 from __future__ import annotations
@@ -28,7 +34,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from invesalius3_tpu_torch.ops import conv_wgrad
 from invesalius3_tpu_torch.parallel import collectives
+from invesalius3_tpu_torch.utils import logging as ilog
 
 _CONV_FNS = {
     nn.Conv2d: F.conv2d, nn.Conv3d: F.conv3d,
@@ -36,12 +44,62 @@ _CONV_FNS = {
 }
 
 
+def wgrad_routed(layer: nn.Module, dtype: torch.dtype) -> bool:
+    """Whether ``conv`` takes the weight gradient of ``layer`` in ``dtype``
+    from ``ops/conv_wgrad.py``: an ``nn.Conv3d`` of one group, stride 1, a
+    cubic kernel of side 1 or 5 padded by k // 2, one input or one
+    output channel and at most 8 on the other side, float32 or bfloat16,
+    while autograd records and the weight takes a gradient (and no
+    ``torch.jit`` trace records: a traced module keeps torch's
+    convolution)."""
+    if not torch.is_grad_enabled() or type(layer) is not nn.Conv3d:
+        return False
+    k = layer.kernel_size[0]
+    return (layer.kernel_size == (k,) * 3 and layer.padding == (k // 2,) * 3
+            and layer.stride == (1, 1, 1) and layer.groups == 1
+            and conv_wgrad.takes(layer.in_channels, layer.out_channels, k)
+            and dtype in (torch.float32, torch.bfloat16)
+            and layer.weight.requires_grad and not torch.jit.is_tracing())
+
+
+class _WgradConv3d(torch.autograd.Function):
+    """``conv3d(x, w, padding=w.shape[-1] // 2)`` whose weight gradient comes
+    from ``conv_wgrad.conv_wgrad`` (the kernel on the card, its plain
+    version on the CPU) and whose input gradient, when asked for, from
+    ``torch.nn.grad.conv3d_input``.  Each weight gradient adds 1 to the
+    traced step's ``conv.wgrad_kernel`` count: autograd runs a CUDA backward
+    on a thread of its own, so the root span is taken in the forward."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x, w)
+        ctx.root = ilog.root_span()
+        return F.conv3d(x, w, None, stride=1, padding=w.shape[-1] // 2)
+
+    @staticmethod
+    def backward(ctx, dy: torch.Tensor):
+        x, w = ctx.saved_tensors
+        k = w.shape[-1]
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = torch.nn.grad.conv3d_input(x.shape, w, dy, padding=k // 2)
+        if ctx.needs_input_grad[1]:
+            gw = conv_wgrad.conv_wgrad(x.contiguous(), dy.contiguous(), k)
+            ilog.count("conv.wgrad_kernel", root=ctx.root)
+        return gx, gw
+
+
 def conv(layer: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``layer`` (a torch Conv / ConvTranspose holding the weights) applied
     as the Flax layer with ``dtype`` applies it: input and kernel in
-    ``dtype``, a ``dtype`` result, then the ``dtype`` bias added."""
-    y = _CONV_FNS[type(layer)](x.to(dtype), layer.weight.to(dtype), None,
-                               stride=layer.stride, padding=layer.padding)
+    ``dtype``, a ``dtype`` result, then the ``dtype`` bias added.  The
+    weight gradient of a ``wgrad_routed`` layer comes from
+    ``ops/conv_wgrad.py``."""
+    if wgrad_routed(layer, dtype):
+        y = _WgradConv3d.apply(x.to(dtype), layer.weight.to(dtype))
+    else:
+        y = _CONV_FNS[type(layer)](x.to(dtype), layer.weight.to(dtype), None,
+                                   stride=layer.stride, padding=layer.padding)
     if layer.bias is not None:
         y = y + layer.bias.to(dtype).view((1, -1) + (1,) * (y.dim() - 2))
     return y

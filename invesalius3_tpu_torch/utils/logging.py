@@ -202,15 +202,24 @@ def span(name: str, **attrs):
     return Span(name, attrs)
 
 
-def count(name: str, n: int = 1) -> None:
-    """Add ``n`` to the open root span's ``counts[name]`` (kept in the
-    root's ring entry) while a profiler records."""
+def root_span() -> Optional[Span]:
+    """The outermost span open on this thread while a profiler records, or
+    None: a ``count`` made on another thread for it (autograd runs a CUDA
+    backward on a thread of its own) names it as ``root``."""
     if not torch.autograd._profiler_enabled():
-        return
+        return None
     stack = getattr(_open, "stack", None)
-    if stack:
-        counts = stack[0].counts
-        counts[name] = counts.get(name, 0) + n
+    return stack[0] if stack else None
+
+
+def count(name: str, n: int = 1, root: Optional[Span] = None) -> None:
+    """Add ``n`` to ``counts[name]`` of ``root`` (kept in the root's ring
+    entry), by default the open root span of this thread while a profiler
+    records."""
+    if root is None:
+        root = root_span()
+    if root is not None:
+        root.counts[name] = root.counts.get(name, 0) + n
 
 
 def timing(fn):

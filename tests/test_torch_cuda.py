@@ -14,8 +14,11 @@ from invesalius3_tpu_torch import constants as const
 from invesalius3_tpu_torch import pipeline
 from invesalius3_tpu_torch.core.slice import Slice
 from invesalius3_tpu_torch.core.volume import Volume
-from invesalius3_tpu_torch.ops import kernels, marching, watershed
+from invesalius3_tpu_torch.models import layers as mlayers
+from invesalius3_tpu_torch.models import train, unet3d
+from invesalius3_tpu_torch.ops import conv_wgrad, kernels, marching, watershed
 from invesalius3_tpu_torch.ops import projection_kernels as rays
+from invesalius3_tpu_torch.utils import logging as ilog
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -565,3 +568,128 @@ def test_ca_smoothing_card_equals_cpu_at_anisotropic_spacing(cuda):
     want = mesh.ca_smoothing_device(
         marching.mask_to_surface_device(m, spacing=(0.5, 0.7, 1.1)), **smooth)
     assert float((got.cpu() - want).abs().max()) < 1e-4
+
+
+# (c_in, c_out, k, (n, d, h, w), dtype): the training step's two
+# single-channel convolutions at 8 patches of 96^3, ragged volumes, one
+# output channel (mirrored taps) and channels below 8
+WGRAD_CASES = [(1, 8, 5, (8, 96, 96, 96), torch.bfloat16), (8, 1, 1, (8, 96, 96, 96), torch.float32),
+               (1, 8, 5, (1, 13, 17, 23), torch.bfloat16), (1, 8, 5, (1, 13, 17, 23), torch.float32),
+               (8, 1, 5, (2, 7, 9, 11), torch.bfloat16), (1, 3, 1, (2, 5, 7, 9), torch.float32),
+               (5, 1, 5, (1, 33, 9, 70), torch.bfloat16), (1, 1, 1, (3, 4, 5, 6), torch.float32)]
+
+
+def _wgrad_room(x, dy, k, want):
+    """How far the kernel may lie from the plain version: two float32 sums
+    of an element in other orders within 1e-6 of the sum of its terms'
+    magnitudes, and a bfloat16 result one unit in the last place more.  At
+    8 x 96^3 of standard normal inputs that is 0.2% of a typical element;
+    a tile edge's voxels left out or counted twice (2-4% of the volume)
+    would move it by 15-20%."""
+    room = 1e-6 * conv_wgrad.conv_wgrad_ref(x.abs(), dy.abs(), k).float()
+    if x.dtype == torch.bfloat16:
+        room = room + 2.0 ** -7 * want.float().abs()
+    return room
+
+
+def _wgrad_inputs(case, dev, seed=7):
+    c_in, c_out, k, (n, d, h, w), dtype = case
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(n, c_in, d, h, w, device=dev, generator=g).to(dtype)
+    return x, torch.randn(n, c_out, d, h, w, device=dev, generator=g).to(dtype), k
+
+
+@pytest.mark.parametrize("case", WGRAD_CASES, ids=lambda c: f"{c[0]}to{c[1]}_k{c[2]}_"
+                         f"{'x'.join(map(str, c[3]))}_{str(c[4])[6:]}")
+def test_conv_wgrad_kernel_against_plain(cuda, case):
+    """The kernel within a float32 sum's distance of the plain version, the
+    same bits on a second call (no atomics), one launch counted a call."""
+    x, dy, k = _wgrad_inputs(case, cuda)
+    before = dict(conv_wgrad.LAUNCHES)
+    got = conv_wgrad.conv_wgrad(x, dy, k)
+    again = conv_wgrad.conv_wgrad(x, dy, k)
+    torch.cuda.synchronize()
+    assert conv_wgrad.LAUNCHES["conv_wgrad"] == before["conv_wgrad"] + 2
+    assert conv_wgrad.LAUNCHES[f"k{k}"] == before[f"k{k}"] + 2
+    assert torch.equal(got, again)
+    want = conv_wgrad.conv_wgrad_ref(x, dy, k)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert bool(((got.float() - want.float()).abs() <= _wgrad_room(x, dy, k, want)).all())
+
+
+def test_conv_wgrad_kernel_rejects_what_it_does_not_take(cuda):
+    x = torch.zeros(1, 1, 8, 8, 8, device=cuda)
+    dy = torch.zeros(1, 8, 8, 8, 8, device=cuda)
+    before = conv_wgrad.LAUNCHES["conv_wgrad"]
+    with pytest.raises(TypeError):
+        conv_wgrad.conv_wgrad(x.half(), dy.half(), 5)
+    with pytest.raises(ValueError):
+        conv_wgrad.conv_wgrad(x, dy.cpu(), 5)
+    with pytest.raises(ValueError):
+        conv_wgrad.conv_wgrad(x, dy.to(memory_format=torch.channels_last_3d), 5)
+    with pytest.raises(ValueError):
+        conv_wgrad.conv_wgrad(x, dy.transpose(2, 4), 5)
+    with pytest.raises(ValueError):
+        conv_wgrad.conv_wgrad(x, dy, 3)
+    assert conv_wgrad.LAUNCHES["conv_wgrad"] == before
+
+
+@pytest.mark.parametrize("case", [(1, 8, 5, torch.bfloat16), (8, 1, 1, torch.float32)],
+                         ids=["first_conv", "head"])
+def test_routed_forward_is_bit_identical_on_the_card(cuda, case):
+    """The routed convolution's forward is the same cuDNN call, bit for bit."""
+    c_in, c_out, k, dtype = case
+    layer = torch.nn.Conv3d(c_in, c_out, k, padding=k // 2).to(cuda)
+    x = torch.rand(2, c_in, 40, 40, 40, device=cuda, generator=torch.Generator(cuda).manual_seed(3))
+    with mlayers.fp32_convs(cuda):
+        assert mlayers.wgrad_routed(layer, dtype)
+        got = mlayers.conv(layer, x, dtype)
+        with torch.no_grad():
+            want = mlayers.conv(layer, x, dtype)
+    assert got.grad_fn is not None and torch.equal(got.detach(), want)
+
+
+def _unet_step(dev, seed=5):
+    model = unet3d.Unet3D(init_features=8, dtype=torch.bfloat16)
+    model.load_state_dict(mlayers.init_state(model, torch.Generator().manual_seed(seed)))
+    model.to(dev)
+    x = torch.rand(2, 1, 32, 32, 32, device=dev, generator=torch.Generator(dev).manual_seed(seed))
+    return model, train.adam(model.parameters()), x, (x > 0.5).to(torch.float32)
+
+
+def test_train_step_weight_gradients_from_the_kernel(cuda, monkeypatch):
+    """A bfloat16 training step on the card: the first convolution's and
+    the head's weight gradients come from the kernel (two launches), lie
+    within a float32 sum of the plain version on the same cotangents, and
+    are the parameters' gradients (cast to float32)."""
+    seen = {}
+    kernel = conv_wgrad.conv_wgrad
+
+    def both(x, dy, k):
+        got = kernel(x, dy, k)
+        want = conv_wgrad.conv_wgrad_ref(x, dy, k)
+        seen[(x.shape[1], dy.shape[1])] = (got, bool(
+            ((got.float() - want.float()).abs() <= _wgrad_room(x, dy, k, want)).all()))
+        return got
+
+    monkeypatch.setattr(conv_wgrad, "conv_wgrad", both)
+    model, opt, x, y = _unet_step(cuda)
+    before = conv_wgrad.LAUNCHES["conv_wgrad"]
+    train.train_step(model, opt, x, y)
+    torch.cuda.synchronize()
+    assert conv_wgrad.LAUNCHES["conv_wgrad"] == before + 2
+    assert sorted(seen) == [(1, 8), (8, 1)] and all(ok for _, ok in seen.values())
+    assert torch.equal(model.encoder1.enc1_conv1.weight.grad, seen[(1, 8)][0].float())
+    assert torch.equal(model.conv.weight.grad, seen[(8, 1)][0])
+
+
+def test_traced_train_step_counts_the_kernel_on_the_card(cuda):
+    """autograd runs the card's backward on a thread of its own: the count
+    still reaches the step's root span."""
+    model, opt, x, y = _unet_step(cuda)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts):
+        train.train_step(model, opt, x, y)
+        torch.cuda.synchronize()
+    step = [e for e in ilog.perf_report() if e["name"] == "train.step"][-1]
+    assert step["counts"] == {"conv.wgrad_kernel": 2}
