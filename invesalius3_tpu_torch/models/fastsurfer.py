@@ -40,6 +40,7 @@ import torch.nn.functional as F
 from invesalius3_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from invesalius3_tpu_torch.models.layers import (BatchNorm, PReLU, conv, fp32_convs,
                                                  init_state, load)
+from invesalius3_tpu_torch.utils import logging as ilog
 
 CONFORM_SIZE = 256
 THICK = 7  # thick-slice input channels (FastSurfer convention)
@@ -168,12 +169,22 @@ def infer_sagittal_mapping(rows: Sequence[Tuple[int, str, str]] = LUT_ROWS) -> n
     return idx
 
 
+def sagittal_index(rows: Sequence[Tuple[int, str, str]] = LUT_ROWS,
+                   device=None) -> torch.Tensor:
+    """``infer_sagittal_mapping`` as an int64 tensor on ``device``."""
+    return torch.from_numpy(infer_sagittal_mapping(rows).astype(np.int64)).to(device)
+
+
 def apply_sagittal_mapping(logits: torch.Tensor,
-                           rows: Sequence[Tuple[int, str, str]] = LUT_ROWS) -> torch.Tensor:
+                           rows: Sequence[Tuple[int, str, str]] = LUT_ROWS,
+                           index: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Expand sagittal logits (..., n_sag) to the full class space
-    (..., n_full) by index gather (reference data_process.py:320)."""
-    idx = torch.from_numpy(infer_sagittal_mapping(rows).astype(np.int64))
-    return logits.index_select(-1, idx.to(logits.device))
+    (..., n_full) by index gather (reference data_process.py:320).
+    ``index`` is ``sagittal_index(rows)`` on the logits' device, made here
+    when not given."""
+    if index is None:
+        index = sagittal_index(rows, logits.device)
+    return logits.index_select(-1, index)
 
 
 def write_lut_tsv(path) -> None:
@@ -335,6 +346,14 @@ def thick_slices(volume: torch.Tensor, axis: int, thick: int = THICK) -> torch.T
     return torch.stack([padded[i: i + v.shape[0]] for i in range(thick)], dim=1)
 
 
+def kernel_of(variables) -> int:
+    """The blocks' convolution width in ``variables`` (a state dict, or one
+    a view): the first convolution's last dimension, 3 with no weights."""
+    state = variables.get("axial", variables) if variables else {}
+    w = state.get("enc1.conv1.weight") if hasattr(state, "get") else None
+    return 3 if w is None else int(w.shape[-1])
+
+
 class FastSurferPipeline:
     """Per-plane inference + view aggregation (reference pipeline.py:36,
     inference.py eval: sagittal remap + alpha weights), on ``device``.
@@ -353,6 +372,8 @@ class FastSurferPipeline:
                  filters: int = 64, sagittal_merged: bool = True,
                  device=DEFAULT_DEVICE):
         """`variables` maps view -> state dict (or is one shared state dict).
+        The blocks' convolution width is the weights' own (``kernel_of``:
+        the published networks' 5), 3 for a random init.
         With ``sagittal_merged`` the sagittal net predicts the merged
         (non-lateralized) class set and its logits are expanded via
         apply_sagittal_mapping, as the reference does.  A view without
@@ -364,13 +385,14 @@ class FastSurferPipeline:
         self.sagittal_merged = sagittal_merged and num_classes == NUM_CLASSES
         n_sag = (len(get_labels_from_lut()[1]) if self.sagittal_merged
                  else num_classes)
-        models = {
-            "axial": FastSurferCNN(num_classes=num_classes, filters=filters),
-            "coronal": FastSurferCNN(num_classes=num_classes, filters=filters),
-            "sagittal": FastSurferCNN(num_classes=n_sag, filters=filters),
-        }
         if variables is None:
             variables = {}
+        kernel = kernel_of(variables)
+        models = {
+            "axial": FastSurferCNN(num_classes=num_classes, filters=filters, kernel=kernel),
+            "coronal": FastSurferCNN(num_classes=num_classes, filters=filters, kernel=kernel),
+            "sagittal": FastSurferCNN(num_classes=n_sag, filters=filters, kernel=kernel),
+        }
         if isinstance(variables, dict) and "axial" not in variables:
             # single shared state dict (tests) or empty -> random init
             shared = variables or None
@@ -383,49 +405,77 @@ class FastSurferPipeline:
         self.variables = variables
         self.models = {view: load(m, variables[view], self.device)
                        for view, m in models.items()}
+        # made once a pipeline: a host-made index's copy to the card, from
+        # pageable memory, waits for the card's queue to drain
+        self.sagittal_index = (sagittal_index(device=self.device)
+                               if self.sagittal_merged else None)
+
+    def view_logits(self, batch: torch.Tensor, view: str) -> torch.Tensor:
+        """(b, H, W, classes) float32 logits of a (b, 7, H, W) batch of
+        thick slices through ``view``'s network, in its own class set."""
+        with torch.inference_mode():
+            return self.models[view](batch).permute(0, 2, 3, 1)
+
+    def full_classes(self, logits: torch.Tensor, view: str) -> torch.Tensor:
+        """``view_logits`` in the full class set: the sagittal ones
+        expanded by ``apply_sagittal_mapping``."""
+        if view == "sagittal" and self.sagittal_merged:
+            return apply_sagittal_mapping(logits, index=self.sagittal_index)
+        return logits
 
     def plane_logits(self, batch: torch.Tensor, view: str) -> torch.Tensor:
         """(b, H, W, num_classes) float32 logits of a (b, 7, H, W) batch of
         thick slices through ``view``'s network, the sagittal ones expanded
         to the full class set."""
-        with torch.inference_mode():
-            logits = self.models[view](batch).permute(0, 2, 3, 1)
-        if view == "sagittal" and self.sagittal_merged:
-            logits = apply_sagittal_mapping(logits)
-        return logits
+        return self.full_classes(self.view_logits(batch, view), view)
 
     def aggregate(self, volume: torch.Tensor, progress=None) -> torch.Tensor:
         """(D, H, W, num_classes) float32: the views' logits weighted and
-        summed (axial, then coronal, then sagittal)."""
+        summed (axial, then coronal, then sagittal).  Traced, each view is
+        the span ``parcellate.view``, each batch ``parcellate.batch`` with
+        ``parcellate.model`` (the network) and ``parcellate.add`` (remap,
+        weight and add into the sum) inside; the count
+        ``parcellate.slices`` adds the slices through a network."""
         agg = None
         for vi, (view, axis) in enumerate(self.VIEWS):
-            batch = thick_slices(volume, axis)
-            n = batch.shape[0]
-            weight = _f32(self.VIEW_WEIGHTS[view], volume.device)
-            for i in range(0, n, self.batch_size):
-                part = (self.plane_logits(batch[i: i + self.batch_size], view)
-                        * weight).movedim(0, axis)
-                if agg is None:
-                    agg = torch.empty(volume.shape + (part.shape[-1],),
-                                      dtype=torch.float32, device=volume.device)
-                dst = agg.narrow(axis, i, part.shape[axis])
-                if vi == 0:
-                    dst.copy_(part)
-                else:
-                    dst.add_(part)
-                if progress is not None:
-                    progress(vi / 3.0 + (1.0 / 3.0) * min(1.0, (i + self.batch_size) / n))
+            with ilog.span("parcellate.view", view=view):
+                batch = thick_slices(volume, axis)
+                n = batch.shape[0]
+                weight = _f32(self.VIEW_WEIGHTS[view], volume.device)
+                for i in range(0, n, self.batch_size):
+                    with ilog.span("parcellate.batch", index=i // self.batch_size):
+                        with ilog.span("parcellate.model"):
+                            logits = self.view_logits(batch[i: i + self.batch_size], view)
+                        with ilog.span("parcellate.add"):
+                            part = (self.full_classes(logits, view) * weight).movedim(0, axis)
+                            if agg is None:
+                                agg = torch.empty(volume.shape + (part.shape[-1],),
+                                                  dtype=torch.float32, device=volume.device)
+                            dst = agg.narrow(axis, i, part.shape[axis])
+                            if vi == 0:
+                                dst.copy_(part)
+                            else:
+                                dst.add_(part)
+                    ilog.count("parcellate.slices", part.shape[axis])
+                    if progress is not None:
+                        progress(vi / 3.0 + (1.0 / 3.0) * min(1.0, (i + self.batch_size) / n))
         return agg
 
     def run_tensor(self, t1_volume, conform_input: bool = True,
                    conform_size: int = CONFORM_SIZE,
                    return_freesurfer_ids: bool = False, progress=None) -> torch.Tensor:
-        """``run`` with the labels left on the device."""
-        vol = torch.as_tensor(np.ascontiguousarray(t1_volume)).to(self.device)
-        vol = conform_tensor(vol, conform_size) if conform_input else vol.to(torch.float32)
-        labels = torch.argmax(self.aggregate(vol, progress), dim=-1).to(torch.int32)
-        if return_freesurfer_ids:
-            labels = torch.from_numpy(class_ids()).to(self.device)[labels.long()]
+        """``run`` with the labels left on the device.  Traced, the move
+        to the device and the conform are the span ``parcellate.conform``,
+        the argmax and the id map ``parcellate.labels``."""
+        with ilog.span("parcellate.conform"):
+            vol = torch.as_tensor(np.ascontiguousarray(t1_volume)).to(self.device)
+            vol = conform_tensor(vol, conform_size) if conform_input else vol.to(torch.float32)
+        agg = self.aggregate(vol, progress)
+        with ilog.span("parcellate.labels"):
+            labels = torch.argmax(agg, dim=-1).to(torch.int32)
+            del agg
+            if return_freesurfer_ids:
+                labels = torch.from_numpy(class_ids()).to(self.device)[labels.long()]
         return labels
 
     def run(self, t1_volume: np.ndarray, conform_input: bool = True,

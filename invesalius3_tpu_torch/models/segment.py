@@ -440,18 +440,37 @@ class SubpartSegmenter:
     def segment(self, image, probability_threshold: float = 0.5,
                 batch_size: int = 8, progress_cb=None
                 ) -> Tuple[np.ndarray, np.ndarray]:
+        """(FreeSurfer-id labels int32, mask uint8 0/255) on the host.
+        Traced, it is the span ``parcellate``: the pipeline's construction
+        and weight load ``parcellate.build`` (with the count
+        ``parcellate.weight_bytes``, the three networks' parameters and
+        buffers once loaded), then the pipeline's spans
+        (``FastSurferPipeline.run_tensor``), a resample back to the image
+        grid ``parcellate.resample``, and the copy to the host
+        ``parcellate.host_result``."""
         from invesalius3_tpu_torch.ops.resize import resize_volume
 
         img = np.asarray(image)
-        pipe = self._fs.FastSurferPipeline(
-            variables=self.variables or {}, batch_size=batch_size,
-            filters=self.filters, device=self.device)
-        labels = pipe.run_tensor(img, conform_size=self.conform_size,
-                                 return_freesurfer_ids=True, progress=progress_cb)
-        if tuple(labels.shape) != img.shape:  # back to the image grid
-            labels = resize_volume(labels, img.shape, order=0)
-        mask = (labels > 0).to(torch.uint8) * 255  # whole-brain fallback
-        return labels.cpu().numpy(), mask.cpu().numpy()
+        with ilog.span("parcellate", shape=tuple(int(s) for s in img.shape),
+                       batch=batch_size, conform=self.conform_size):
+            with ilog.span("parcellate.build"):
+                pipe = self._fs.FastSurferPipeline(
+                    variables=self.variables or {}, batch_size=batch_size,
+                    filters=self.filters, device=self.device)
+                if ilog.root_span() is not None:  # traced: the bytes the networks moved
+                    ilog.count("parcellate.weight_bytes",
+                               sum(t.nbytes for m in pipe.models.values()
+                                   for t in m.state_dict().values()))
+            labels = pipe.run_tensor(img, conform_size=self.conform_size,
+                                     return_freesurfer_ids=True, progress=progress_cb)
+            if tuple(labels.shape) != img.shape:  # back to the image grid
+                with ilog.span("parcellate.resample"):
+                    labels = resize_volume(labels, img.shape, order=0)
+            with ilog.span("parcellate.host_result") as host:
+                mask = (labels > 0).to(torch.uint8) * 255  # whole-brain fallback
+                out = labels.cpu().numpy(), mask.cpu().numpy()
+                host.set(bytes=sum(a.nbytes for a in out))
+            return out
 
 
 def structure_masks(labelmap: np.ndarray, categories) -> list:
