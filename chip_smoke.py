@@ -133,8 +133,10 @@ Phases, each fatal on failure (no phase catches an error):
    (2048 patches of 480^2), its STL equal to the surface of the majority
    vote; ``SubpartSegmenter`` at conform 256 on a 256^3 phantom with
    ``run_quick_qc`` and ``structure_masks``, and the three-view sum at 27
-   voxels rebuilt bit for bit from its slices.  No kernel lies on this
-   path (the counts must stay 0).
+   voxels rebuilt bit for bit from its slices.  No sweep or ray kernel
+   lies on this path (their counts must stay 0); the competitive dense
+   blocks launch ``ops/cdb_epilogue.py``'s kernel, 36 times a network
+   call (counted over the timed ``SubpartSegmenter`` calls).
 13. drives the study importers (``study_importers``): ``make_ct(512)`` as
    512 DICOM files of 512^2 (explicit VR LE, HU + 1024 rescaled by -1024,
    patient, study and series UIDs, positions along the normal, names
@@ -279,6 +281,15 @@ Phases, each fatal on failure (no phase catches an error):
    in float32); (c) one float32 step at 48^3, batch 2, on the card and on
    the CPU, equal within ``CARD_TOL``.  No kernel lies
    on this path (the counts must stay 0).
+20. times the competitive dense block's fused transition
+   (``cdb_epilogue_phase``, ``ops/cdb_epilogue.py``) at a middle
+   transition of FastSurferCNN's first level, 8 x 64 x 256^2 (bf16
+   convolution output, float32 partner, norm, maxout, PReLU, float32 and
+   bf16 results): the kernel's ms between CUDA events against its byte
+   bound (12 B an element over 3.35 TB/s) and against the plain version's
+   ms; the two equal bit for bit, as they do in the first block's entry
+   (8 x 7 x 256^2, bf16 out) and after its last convolution (float32 out
+   only).
 
 It prints the card's name and power limit first, the whole run's seconds
 and a JSON line of the kernels before the last line, and as the last line
@@ -320,7 +331,7 @@ from invesalius3_tpu_torch.net import download
 from invesalius3_tpu_torch.ops import (connected, floodfill, kernels, mesh, morphology,
                                        rasterize, raycast, render_mesh, reslice, resize,
                                        transforms, watershed)
-from invesalius3_tpu_torch.ops import conv_wgrad, marching
+from invesalius3_tpu_torch.ops import cdb_epilogue, conv_wgrad, marching
 from invesalius3_tpu_torch.ops import projection_kernels as rays
 from invesalius3_tpu_torch.ops import threshold as thr_ops
 from invesalius3_tpu_torch.parallel import collectives, distributed, sharded_ops
@@ -338,6 +349,7 @@ REPLACES = {  # sweep axis -> the TPU kernel it replaces
 RAY_SOURCE = "invesalius3_tpu_torch/csrc/ray_projections.cu"
 # replaces no TPU kernel (the JAX package leaves the gradient to XLA)
 CONV_WGRAD_SOURCE = "invesalius3_tpu_torch/csrc/conv_wgrad.cu"
+CDB_EPILOGUE_SOURCE = "invesalius3_tpu_torch/csrc/cdb_epilogue.cu"  # replaces none either
 RAY_REPLACES = {"lmip": "invesalius3_tpu/ops/pallas_kernels.py:81",   # lmip_axis0
                 "mida": "invesalius3_tpu/ops/pallas_kernels.py:147"}  # mida_axis0
 RAY_FNS = {"lmip": (rays.lmip_rays, rays.lmip_ref),
@@ -547,7 +559,7 @@ def main() -> int:
     viewer_3d(dev)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_models_") as d:
-        models_phase(dev, Path(d))
+        models = models_phase(dev, Path(d))
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_import_") as d:
         study_importers(dev, Path(d))
@@ -587,7 +599,8 @@ def main() -> int:
          "max_abs_err": errs[(k, axis)], **ray_times[(k, axis)]}
         for k in RAY_FNS for axis in (0, 1, 2)]
     entries += conv_wgrad_entries(trained)
-    log(f"phases [1]-[19]: {time.perf_counter() - t_run:.1f} s ({smi})")
+    entries.append(cdb_epilogue_phase(dev, models["cdb_epilogue_launches"]))
+    log(f"phases [1]-[20]: {time.perf_counter() - t_run:.1f} s ({smi})")
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2221,7 +2234,9 @@ def _fs_slice_check(pipe, vol: torch.Tensor, agg: torch.Tensor, picks) -> float:
 
 
 def models_phase(dev, tmp: Path, ct_n: int = MODELS_CT_N, mri_n: int = MODELS_MRI_N) -> dict:
-    """Phase 12; returns the per-call record of the full-width runs."""
+    """Phase 12; returns the per-call record of the full-width runs
+    (``rows``) and the dense blocks' kernel launches in the timed
+    ``SubpartSegmenter`` calls (``cdb_epilogue_launches``)."""
     import os
 
     log(f"[12] the deep-learning segmentation family: CT {ct_n}^3, MRI {mri_n}^3")
@@ -2344,8 +2359,17 @@ def models_phase(dev, tmp: Path, ct_n: int = MODELS_CT_N, mri_n: int = MODELS_MR
     n_fs = 3 * mri_n
     flops = mri_n * (2 * fastsurfer_flops(mri_n, mri_n, 79)
                      + fastsurfer_flops(mri_n, mri_n, _fastsurfer_views()["fastsurfer_sagittal"]))
+    cdb_epilogue.reset_launches()
     labels, mask = times(f"SubpartSegmenter {mri_n}^3 (conform {mri_n})",
                          lambda: sub.segment(mri), n_fs, flops)
+    # ``times`` calls twice; each call runs three views of batches of 8
+    fused = cdb_epilogue.LAUNCHES["cdb_epilogue" if dev.type == "cuda" else "ref"]
+    want = 2 * 36 * 3 * -(-mri_n // 8)
+    log(f"    the dense blocks' kernel: {fused} launches in the two calls ({want} expected, "
+        f"36 a network call)")
+    if fused != want or (dev.type == "cuda" and cdb_epilogue.LAUNCHES["ref"]):
+        raise AssertionError(f"subpart: the dense blocks' transitions {cdb_epilogue.LAUNCHES}, "
+                             f"{want} launches expected")
     if labels.shape != mri.shape or labels.dtype != np.int32 or mask.dtype != np.uint8 \
             or not np.array_equal(mask, np.where(labels > 0, 255, 0)) \
             or not set(np.unique(labels)) <= set(fastsurfer.class_ids().tolist()):
@@ -2370,12 +2394,12 @@ def models_phase(dev, tmp: Path, ct_n: int = MODELS_CT_N, mri_n: int = MODELS_MR
 
     launches = {"sweeps": dict(kernels.LAUNCHES),
                 "rays": {k: dict(v) for k, v in rays.LAUNCHES.items()}}
-    log(f"  phase [12]: {time.perf_counter() - t_phase:.1f} s; kernel launches on this "
-        f"path: {launches} (no kernel lies on it)")
+    log(f"  phase [12]: {time.perf_counter() - t_phase:.1f} s; sweep and ray launches on "
+        f"this path: {launches} (none lies on it); the dense blocks' kernel: {fused}")
     if any(kernels.LAUNCHES.values()) or any(
             v for per_axis in rays.LAUNCHES.values() for v in per_axis.values()):
         raise AssertionError(f"a hot-path kernel launched on the models' path: {launches}")
-    return times.rows
+    return {"rows": times.rows, "cdb_epilogue_launches": fused}
 
 
 def implant_oracle(seg, image: np.ndarray, prob: np.ndarray) -> float:
@@ -5260,6 +5284,73 @@ def training_phase(dev, tmp: Path, p: int = TRAIN_P, batch: int = TRAIN_BATCH,
             "c": c_errs, "seconds": seconds, "conv_wgrad": wgrad,
             "conv_wgrad_launches": {"enc1_conv1": conv_wgrad.LAUNCHES["k5"],
                                     "conv": conv_wgrad.LAUNCHES["k1"]}}
+
+def cdb_epilogue_phase(dev, launches: int, shape=(8, 64, 256, 256), reps: int = 50) -> dict:
+    """Phase 20: the fused transition of a competitive dense block
+    (``ops/cdb_epilogue.py``) after the first level's second convolution,
+    on ``shape``: the bf16 convolution output normalised, its maximum with
+    the float32 partner written in float32, then PReLU and the bf16 input
+    of the next convolution.  The kernel's ms (``reps`` calls between one
+    pair of CUDA events) against its bound (12 B an element over the device
+    memory's bandwidth) and the plain version's ms; the two must agree bit
+    for bit, as they must in the first block's entry (its 7 input channels
+    normalised to bf16) and after a last convolution (float32 out only).
+    Returns the ``kernels`` line's row, with ``launches`` the kernel's
+    launches on phase [12]'s parcellation path (the timing's own calls are
+    ``timing_calls``)."""
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    log(f"[20] competitive dense block transition, {'x'.join(map(str, shape))} ({card})")
+    gen = torch.Generator(device=dev).manual_seed(20)
+
+    def case(shape):
+        c = shape[1]
+        y = torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
+        var = 0.5 + torch.rand(c, device=dev, generator=gen)
+        weight, mean, bias = (torch.randn(c, device=dev, generator=gen) for _ in range(3))
+        return y, (mean, torch.rsqrt(var + 1e-5) * weight, bias)
+
+    def same(y, **args):
+        got = cdb_epilogue.cdb_epilogue(y, **args)
+        want = cdb_epilogue.cdb_epilogue_ref(y, **args)
+        torch.cuda.synchronize()
+        return all((g is None and w is None) or torch.equal(
+            g.view(torch.int32 if g.dtype == torch.float32 else torch.int16),
+            w.view(torch.int32 if w.dtype == torch.float32 else torch.int16))
+            for g, w in zip(got, want))
+
+    y, norm = case(shape)
+    skip = torch.randn(shape, device=dev, generator=gen)
+    slope = torch.full((1,), 0.25, device=dev)
+    args = dict(norm=norm, skip=skip, slope=slope, out=True, act=torch.bfloat16)
+    entry_y, entry_norm = case((shape[0], 7) + tuple(shape[2:]))
+    with torch.inference_mode():
+        before = cdb_epilogue.LAUNCHES["cdb_epilogue"]
+        modes = {"middle": same(y, **args),
+                 "entry_in_block": same(entry_y, norm=entry_norm, act=torch.bfloat16),
+                 "last": same(y, norm=norm, out=True)}
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            cdb_epilogue.cdb_epilogue(y, **args)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / reps
+        calls = cdb_epilogue.LAUNCHES["cdb_epilogue"] - before
+        plain_ms, _ = _event_ms(lambda: cdb_epilogue.cdb_epilogue_ref(y, **args), 5)
+    nbytes = y.numel() * (y.element_size() + 4 + 4 + 2)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"  kernel {ms:.4f} ms against its bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB at "
+        f"{HBM_BYTES_PER_S / 1e12} TB/s; share {bound / ms:.1%}); plain {plain_ms:.3f} ms; "
+        f"bit-identical {modes}; {calls} calls here, {launches} on phase [12]'s "
+        f"parcellation ({card})")
+    if not all(modes.values()) or calls != reps + len(modes):
+        raise AssertionError(f"[20] cdb_epilogue: bit-identical {modes}, {calls} calls")
+    return {"name": "cdb_epilogue[middle]", "route": "cuda", "source": CDB_EPILOGUE_SOURCE,
+            "replaces": None, "launches": launches, "timing_calls": calls, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+            "bit_identical": modes, "shape": list(shape), "card": card}
+
 
 if __name__ == "__main__":
     sys.exit(main())

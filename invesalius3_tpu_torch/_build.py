@@ -1,6 +1,6 @@
 """Build the port's native libraries from the repository's sources.
 
-Six shared libraries, each with a plain C interface loaded through ctypes:
+Seven shared libraries, each with a plain C interface loaded through ctypes:
 
 - ``watershed_sweep``: ``csrc/watershed_sweep.cu``, compiled by ``nvcc`` for
   ``sm_90a`` (Hopper).  Only a CUDA tensor ever asks for it.
@@ -10,6 +10,9 @@ Six shared libraries, each with a plain C interface loaded through ctypes:
   PyTorch's separate elementwise kernels do.
 - ``conv_wgrad``: ``csrc/conv_wgrad.cu``, the weight gradient of a 3D
   convolution with one input or one output channel, the same way.
+- ``cdb_epilogue``: ``csrc/cdb_epilogue.cu``, the transition between two
+  convolutions of FastSurferCNN's competitive dense block, with
+  ``-fmad=false`` too.
 - ``meshpack``: the host STL packer ``csrc/meshpack.cpp`` (the port's own
   copy of the JAX package's record packer), compiled by ``g++``.
 - ``decimate``: the host QEM edge-collapse decimator ``csrc/decimate.cpp``
@@ -93,6 +96,9 @@ LIBS: Dict[str, _Lib] = {
         _nvcc, NVCC_FLAGS, (_HERE / "csrc" / "conv_wgrad.cu",),
         {"conv_wgrad_grid": [I, I],
          "conv_wgrad": [P, P, P, P] + [I] * 9 + [P]}),
+    "cdb_epilogue": _Lib(
+        _nvcc, NVCC_FLAGS + ["-fmad=false"], (_HERE / "csrc" / "cdb_epilogue.cu",),
+        {"cdb_epilogue": [P, I, P, P, P, P, P, P, P, I, I64, I64, I, I, P]}),
     "meshpack": _Lib(
         _gxx, GXX_FLAGS, (_HERE / "csrc" / "meshpack.cpp",),
         {"stl_pack_mt": [P, I64, P, I64, P, I]}),
@@ -160,6 +166,10 @@ def ray_projections_lib() -> ctypes.CDLL:
 
 def conv_wgrad_lib() -> ctypes.CDLL:
     return _load("conv_wgrad")
+
+
+def cdb_epilogue_lib() -> ctypes.CDLL:
+    return _load("cdb_epilogue")
 
 
 def meshpack_lib() -> ctypes.CDLL:

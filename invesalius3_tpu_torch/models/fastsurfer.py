@@ -40,6 +40,7 @@ import torch.nn.functional as F
 from invesalius3_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from invesalius3_tpu_torch.models.layers import (BatchNorm, PReLU, conv, fp32_convs,
                                                  init_state, load)
+from invesalius3_tpu_torch.ops import cdb_epilogue as epilogue
 from invesalius3_tpu_torch.utils import logging as ilog
 
 CONFORM_SIZE = 256
@@ -225,7 +226,16 @@ class CompetitiveDenseBlock(nn.Module):
     """Three (PReLU -> Conv -> BN) sequences with maxout competition after
     the first two (paper Sec. 2.2: dense connections replaced by maxout).
     ``in_block`` swaps the first PReLU for a BN to normalize raw inputs and
-    skips the first competition (the raw input has a different width)."""
+    skips the first competition (the raw input has a different width).
+
+    In inference (eval mode, no autograd) each transition around a
+    convolution, the norm, the competition, the PReLU and the cast to the
+    convolution's type, is one ``ops/cdb_epilogue.py`` call, bit for bit
+    the modules' result: four a block.  It takes a contiguous (N, C, H, W)
+    float32 input (bfloat16 too for ``in_block``), one slope a PReLU and
+    float32 norms; anything else runs the modules one by one.  Traced, a
+    fused forward adds its four calls to the root's count
+    ``fastsurfer.epilogue``."""
 
     def __init__(self, in_channels: int, features: int, kernel: int = 3,
                  in_block: bool = False, dtype: torch.dtype = torch.float32):
@@ -244,8 +254,53 @@ class CompetitiveDenseBlock(nn.Module):
             setattr(self, f"conv{i}", nn.Conv2d(cin, features, kernel,
                                                 padding=kernel // 2, bias=False))
             setattr(self, f"bn{i}", BatchNorm(features))
+        self._muls: Dict[str, tuple] = {}  # norm name -> (stamp, mul, its storage)
+
+    # by in_block: the PReLUs and the norms of the fused path, in its order
+    _PRELUS = {False: ("prelu1", "prelu2", "prelu3"), True: ("prelu2", "prelu3")}
+    _NORMS = {False: ("bn1", "bn2", "bn3"), True: ("bn0", "bn1", "bn2", "bn3")}
+
+    def _norm_terms(self, name: str):
+        """``(running_mean, mul, bias)`` of the norm ``name`` for the fused
+        path, or None when a term is not float32.  ``mul`` is made by
+        ``BatchNorm.forward``'s expression once, and anew when the mode,
+        ``running_var`` or ``weight`` changes (the stamp holds their storage,
+        so no other tensor takes its address).  The modules' dictionaries
+        are read directly: ``nn.Module.__getattr__`` would cost more host
+        time than the launch."""
+        bn = self._modules[name]
+        var, w = bn._buffers["running_var"], bn._parameters["weight"]
+        mean, bias = bn._buffers["running_mean"], bn._parameters["bias"]
+        stamp = (self.training, var.data_ptr(), var._version, w.data_ptr(), w._version)
+        hit = self._muls.get(name)
+        if hit is None or hit[0] != stamp:
+            f32 = all(t.dtype == torch.float32 for t in (mean, var, w, bias))
+            hit = self._muls[name] = (stamp, torch.rsqrt(var + bn.eps) * w if f32 else None,
+                                      var.detach(), w.detach())
+        if hit[1] is None or mean.dtype != torch.float32 or bias.dtype != torch.float32:
+            return None
+        return mean, hit[1], bias
+
+    def _fused(self, x: torch.Tensor):
+        """The norms' terms (bn0 first in ``in_block``) when this call takes
+        the fused path, else None."""
+        if (self.training or torch.is_grad_enabled() or x.dim() != 4
+                or not x.is_contiguous() or x.device.type not in ("cpu", "cuda")
+                or self.dtype not in epilogue.DTYPES
+                or x.dtype not in (epilogue.DTYPES if self.in_block else (torch.float32,))):
+            return None
+        mods = self._modules
+        for name in self._PRELUS[self.in_block]:
+            slope = mods[name]._parameters["weight"]
+            if slope.dtype != torch.float32 or slope.numel() != 1:
+                return None
+        terms = [self._norm_terms(n) for n in self._NORMS[self.in_block]]
+        return None if None in terms else terms
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        terms = self._fused(x)
+        if terms is not None:
+            return self._forward_fused(x, terms)
         if self.in_block:
             m1 = self.bn1(conv(self.conv1, self.bn0(x), self.dtype))
         else:
@@ -254,6 +309,27 @@ class CompetitiveDenseBlock(nn.Module):
         r2 = self.bn2(conv(self.conv2, self.prelu2(m1), self.dtype))
         m2 = torch.maximum(r2, m1)
         return self.bn3(conv(self.conv3, self.prelu3(m2), self.dtype))
+
+    def _forward_fused(self, x: torch.Tensor, terms) -> torch.Tensor:
+        ep, dt, mods = epilogue.cdb_epilogue, self.dtype, self._modules
+
+        def conv_out(i, a):  # a convolution's output as the kernel takes it
+            return conv(mods[f"conv{i}"], a, dt).contiguous()
+
+        slope = {i: mods[f"prelu{i}"]._parameters["weight"]
+                 for i in ((2, 3) if self.in_block else (1, 2, 3))}
+        if self.in_block:
+            t0, t1, t2, t3 = terms
+            _, a = ep(x, norm=t0, act=dt)
+        else:
+            t1, t2, t3 = terms
+            _, a = ep(x, slope=slope[1], act=dt)
+        m1, a = ep(conv_out(1, a), norm=t1, skip=None if self.in_block else x, slope=slope[2],
+                   out=True, act=dt)
+        _, a = ep(conv_out(2, a), norm=t2, skip=m1, slope=slope[3], act=dt)
+        out = ep(conv_out(3, a), norm=t3, out=True)[0]
+        ilog.count("fastsurfer.epilogue", 4)
+        return out
 
 
 class FastSurferCNN(nn.Module):

@@ -16,9 +16,12 @@ from invesalius3_tpu_torch.core.slice import Slice
 from invesalius3_tpu_torch.core.volume import Volume
 from invesalius3_tpu_torch.models import layers as mlayers
 from invesalius3_tpu_torch.models import train, unet3d
-from invesalius3_tpu_torch.ops import conv_wgrad, kernels, marching, watershed
+from invesalius3_tpu_torch.ops import cdb_epilogue, conv_wgrad, kernels, marching, watershed
 from invesalius3_tpu_torch.ops import projection_kernels as rays
 from invesalius3_tpu_torch.utils import logging as ilog
+
+# a sibling helper module, by its bare name (see its docstring)
+from cdb_oracle import SPECIALS, eager_forward, network, same_bits, thick_batch
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -693,3 +696,99 @@ def test_traced_train_step_counts_the_kernel_on_the_card(cuda):
         torch.cuda.synchronize()
     step = [e for e in ilog.perf_report() if e["name"] == "train.step"][-1]
     assert step["counts"] == {"conv.wgrad_kernel": 2}
+
+
+# FastSurferCNN's levels at batch 8 (64 filters, 256^2 down to 16^2) and
+# the first block's 7-channel input; then shapes and views the kernel takes
+# one element at a time (H * W not a multiple of 8, an unaligned start)
+CDB_SHAPES = [(8, 64, 256, 256), (8, 64, 128, 128), (8, 64, 64, 64), (8, 64, 32, 32),
+              (8, 64, 16, 16), (8, 7, 256, 256)]
+# mode -> (y bf16, norm, skip, slope, out, act): the block's transitions
+CDB_MODES = {"entry_in_block": (True, True, False, False, False, True),
+             "entry": (False, False, False, True, False, True),
+             "conv1_in_block": (True, True, False, True, True, True),
+             "conv1": (True, True, True, True, True, True),
+             "conv2": (True, True, True, True, False, True),
+             "conv3": (True, True, False, False, True, False)}
+
+
+def _cdb_case(shape, mode, dev, act=torch.bfloat16, seed=22, offset=0):
+    y_bf16, norm, skip, slope, out, has_act = CDB_MODES[mode]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = int(np.prod(shape))
+    specials = torch.tensor(SPECIALS, device=dev)
+
+    def values(dtype, at):  # specials at ``at``, the start ``offset`` elements in
+        t = torch.randn(n + offset, device=dev, generator=g) * 3
+        t[offset + at:offset + at + len(SPECIALS)] = specials
+        return t.to(dtype)[offset:].view(shape)
+
+    y = values(torch.bfloat16 if y_bf16 else torch.float32, 0)
+    c = shape[1]
+    var = 0.5 + torch.rand(c, device=dev, generator=g)
+    weight, mean, bias = (torch.randn(c, device=dev, generator=g) for _ in range(3))
+    args = dict(norm=(mean, torch.rsqrt(var + 1e-5) * weight, bias) if norm else None,
+                skip=values(torch.float32, len(SPECIALS) // 2) if skip else None,
+                slope=torch.full((1,), -0.3, device=dev) if slope else None, out=out,
+                act=act if has_act else None)
+    return y, args
+
+
+def _cdb_same(y, args):
+    before = cdb_epilogue.LAUNCHES["cdb_epilogue"]
+    with torch.inference_mode():
+        got = cdb_epilogue.cdb_epilogue(y, **args)
+        want = cdb_epilogue.cdb_epilogue_ref(y, **args)
+    torch.cuda.synchronize()
+    assert cdb_epilogue.LAUNCHES["cdb_epilogue"] == before + 1
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        assert g is None or (g.device == y.device and same_bits(g, w))
+
+
+@pytest.mark.parametrize("mode", sorted(CDB_MODES))
+@pytest.mark.parametrize("shape", CDB_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_cdb_epilogue_kernel_bit_exact(cuda, shape, mode):
+    """The kernel is the plain version bit for bit at the parcellation's
+    shapes in each of the block's transitions, NaN, infinities, signed
+    zeros and subnormals included."""
+    _cdb_same(*_cdb_case(shape, mode, cuda))
+
+
+@pytest.mark.parametrize("mode", sorted(CDB_MODES))
+@pytest.mark.parametrize("shape,offset,act", [((2, 3, 5, 7), 0, torch.bfloat16),
+                                              ((2, 64, 16, 16), 1, torch.bfloat16),
+                                              ((2, 64, 16, 16), 0, torch.float32),
+                                              ((3, 5, 9, 13), 0, torch.float32)],
+                         ids=["ragged", "unaligned", "float32_act", "ragged_float32_act"])
+def test_cdb_epilogue_kernel_one_at_a_time(cuda, mode, shape, offset, act):
+    """Shapes and views that take the kernel one element at a time, and a
+    float32 activation (a float32 network), bit for bit too."""
+    _cdb_same(*_cdb_case(shape, mode, cuda, act=act, offset=offset))
+
+
+def test_cdb_epilogue_kernel_refuses_mixed_devices(cuda):
+    y, args = _cdb_case((2, 64, 16, 16), "conv1", cuda)
+    before = cdb_epilogue.LAUNCHES["cdb_epilogue"]
+    with pytest.raises(ValueError):
+        cdb_epilogue.cdb_epilogue(y, **dict(args, skip=args["skip"].cpu()))
+    with pytest.raises(ValueError):
+        cdb_epilogue.cdb_epilogue(y, **dict(args, slope=args["slope"].cpu()))
+    assert cdb_epilogue.LAUNCHES["cdb_epilogue"] == before
+
+
+def test_fastsurfer_forward_is_bit_identical_on_the_card(cuda):
+    """A published-width 5x5 FastSurferCNN's forward of one batch of 8
+    slices of 256^2 through the kernel is the eager modules' bit for bit,
+    36 launches a network call."""
+    net = network(torch.bfloat16, kernel=5, filters=64, classes=79, device=cuda)
+    x = thick_batch(8, 256, device=cuda)
+    cdb_epilogue.reset_launches()
+    with torch.inference_mode():
+        got = net(x)
+        again = net(x)
+    torch.cuda.synchronize()
+    assert cdb_epilogue.LAUNCHES == {"cdb_epilogue": 72, "ref": 0}
+    with torch.no_grad():
+        want = eager_forward(net, x)
+    assert same_bits(got, again) and same_bits(got, want)

@@ -193,7 +193,8 @@ def test_spans_and_counts(weights):
     """Untraced the ring stays empty; under a profiler the parcellation is
     one root with the build, conform, three views of four batches each (a
     model and an add inside each), labels and host result; its counts are
-    the slices through a network and the weight bytes moved; the answers
+    the slices through a network, the weight bytes moved and the dense
+    blocks' fused transitions (36 a network call); the answers
     are the untraced ones bit for bit."""
     t1, states = weights
     sub = segment.SubpartSegmenter(variables=states, conform_size=N, device="cpu")
@@ -227,6 +228,7 @@ def test_spans_and_counts(weights):
     host = [s for s in spans if s["name"] == "parcellate.host_result"][0]
     assert host["attrs"] == {"bytes": N ** 3 * 5}
     moved = sum(t.nbytes for s in states.values() for t in s.values()) + 8 * 3 * 28
-    assert root["counts"] == {"parcellate.weight_bytes": moved, "parcellate.slices": 3 * N}
+    assert root["counts"] == {"parcellate.weight_bytes": moved, "parcellate.slices": 3 * N,
+                              "fastsurfer.epilogue": 36 * 3 * (N // 8)}
     assert all(by_id[s["parent"]]["start_ns"] <= s["start_ns"] <= s["end_ns"]
                <= by_id[s["parent"]]["end_ns"] for s in spans if s["parent"] is not None)
